@@ -1,0 +1,110 @@
+"""SB3-compatible actor-critic MLP (``MlpPolicy`` /
+``MaskableActorCriticPolicy`` with ``net_arch=dict(pi=[32,32], vf=[32,32])``).
+
+The port of ``marl_sortingenv_tpu.models.mlp``, as an ``nn.Module`` with
+SB3's own layout and parameter names:
+
+* separate pi and vf towers on the flat observation, Linear + Tanh
+  (``mlp_extractor.policy_net`` / ``mlp_extractor.value_net``),
+* ``action_net``: Linear(last_pi, n_actions); ``value_net``:
+  Linear(last_vf, 1),
+* orthogonal init with gains sqrt(2) (hidden), 0.01 (action head) and 1.0
+  (value head), zero biases — SB3's ``ActorCriticPolicy.init_weights``.
+
+f32 throughout; the products are ``torch.matmul``, as the JAX package
+leaves them to XLA.  The policy is not a bit-parity surface: it is held to
+the JAX package by tolerance (``tests/test_torch_policy.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import resolve_device
+
+
+def _tower(obs_dim: int, hidden: Sequence[int]) -> nn.Sequential:
+    layers = []
+    d_in = obs_dim
+    for d_out in hidden:
+        layers += [nn.Linear(d_in, d_out), nn.Tanh()]
+        d_in = d_out
+    return nn.Sequential(*layers)
+
+
+class ActorCritic(nn.Module):
+    def __init__(self, obs_dim: int, n_actions: int,
+                 hidden: Sequence[int] = (32, 32), *,
+                 generator: torch.Generator | None = None, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.obs_dim, self.n_actions = obs_dim, n_actions
+        self.mlp_extractor = nn.Module()
+        self.mlp_extractor.policy_net = _tower(obs_dim, hidden)
+        self.mlp_extractor.value_net = _tower(obs_dim, hidden)
+        last = hidden[-1] if hidden else obs_dim
+        self.action_net = nn.Linear(last, n_actions)
+        self.value_net = nn.Linear(last, 1)
+        # initialised on the CPU from a CPU generator, then moved, so a seed
+        # gives the same weights on every device
+        gains = [(m, float(np.sqrt(2))) for tower in (
+            self.mlp_extractor.policy_net, self.mlp_extractor.value_net)
+            for m in tower if isinstance(m, nn.Linear)]
+        gains += [(self.action_net, 0.01), (self.value_net, 1.0)]
+        with torch.no_grad():
+            for lin, gain in gains:
+                nn.init.orthogonal_(lin.weight, gain, generator=generator)
+                lin.bias.zero_()
+        self.to(dev)
+
+    def policy_logits(self, obs: torch.Tensor) -> torch.Tensor:
+        """Action logits for a single obs or a batch (f32)."""
+        return self.action_net(self.mlp_extractor.policy_net(obs.float()))
+
+    def value_fn(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.value_net(self.mlp_extractor.value_net(obs.float()))[
+            ..., 0]
+
+    def forward(self, obs: torch.Tensor):
+        return self.policy_logits(obs), self.value_fn(obs)
+
+    def predict_deterministic(self, obs: torch.Tensor, mask=None):
+        """SB3 ``predict(deterministic=True)``: argmax over (masked) logits."""
+        logits = self.policy_logits(obs)
+        if mask is not None:
+            logits = masked_logits(logits, mask)
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def masked_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """MaskableCategorical semantics: invalid logits -> dtype min."""
+    neg = torch.finfo(logits.dtype).min
+    return torch.where(mask, logits, torch.full_like(logits, neg))
+
+
+def params_from_jax(params_np, device="cuda") -> ActorCritic:
+    """An ``ActorCritic`` computing the same function as the JAX package's
+    ``ACParams`` given as numpy arrays (``Dense.w`` is ``[in, out]``)."""
+    pi, vf = list(params_np.pi), list(params_np.vf)
+    obs_dim = np.asarray(pi[0].w).shape[0]
+    n_actions = np.asarray(params_np.action.w).shape[1]
+    hidden = [np.asarray(d.w).shape[1] for d in pi]
+    if [np.asarray(d.w).shape[1] for d in vf] != hidden:
+        raise ValueError("pi and vf towers of different widths")
+    model = ActorCritic(obs_dim, n_actions, hidden, device="cpu")
+    lins = ([m for m in model.mlp_extractor.policy_net
+             if isinstance(m, nn.Linear)],
+            [m for m in model.mlp_extractor.value_net
+             if isinstance(m, nn.Linear)])
+    pairs = list(zip(lins[0], pi)) + list(zip(lins[1], vf)) + [
+        (model.action_net, params_np.action), (model.value_net,
+                                               params_np.value)]
+    with torch.no_grad():
+        for lin, d in pairs:
+            lin.weight.copy_(torch.tensor(np.asarray(d.w, np.float32).T))
+            lin.bias.copy_(torch.tensor(np.asarray(d.b, np.float32)))
+    return model.to(resolve_device(device))
