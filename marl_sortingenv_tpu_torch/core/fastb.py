@@ -7,11 +7,14 @@ bit-identical trajectories on the CPU (``tests/test_torch_fastb*.py``).
 Every state leaf keeps the env batch on its LAST axis; ``key`` is
 ``int32[N, 2]`` holding the u32 threefry words.
 
-Dispatch follows the state's device.  On CUDA every step goes through
-the hand-written step kernel (``ops/step_cuda.py``); on the CPU it runs
-the eager bodies below.  The eager bodies also run on CUDA, but only when
-``step_cuda.step_mono_plain`` is called explicitly, as the kernel's
-yardstick.
+Dispatch follows the state's device.  On CUDA every step without a frozen
+sort agent goes through the hand-written step kernel
+(``ops/step_cuda.py``); the press step with a frozen sort agent runs the
+eager body with its sorting core on the sorting-core kernel
+(``ops/sort_cuda.py``).  On the CPU every step runs the eager bodies below
+and launches nothing.  The eager bodies also run on CUDA as the kernels'
+plain versions (``step_cuda.step_mono_plain``, ``eager_step``), and then
+launch no kernel either.
 
 Float constants enter as device tensors, never as Python scalars in a
 division: PyTorch's CUDA ``a / scalar`` multiplies by the reciprocal,
@@ -405,22 +408,31 @@ def _update_accuracy(cfg: SimConfig, st: BState) -> BState:
 def _sort_uniforms(key):
     """The 12 uniforms of the sort section, drawn with the JAX engine's key
     chain: per station split(key) -> (key, sk), split(sk, 3), one uniform
-    from each of the 3 keys.  Returns (us f32[12, N], new key)."""
-    us = []
+    from each of the 3 keys.  The 4 splits of the chain run in turn; the
+    station keys' splits and uniforms are drawn together (the same bits).
+    Returns (us f32[12, N], station-major: row 3 * station + j; new key)."""
+    sks = []
     for _ in range(4):
         ks = TF.split(key)
         key, sk = ks[:, 0], ks[:, 1]
-        k3 = TF.split(sk, 3)                               # (N, 3, 2)
-        u = TF.uniform(k3.reshape(-1, 2)).reshape(-1, 3)   # (N, 3)
-        us.append(u.T)
-    return torch.cat(us, dim=0), key.contiguous()
+        sks.append(sk)
+    n = key.shape[0]
+    k3 = TF.split(torch.stack(sks, dim=1).reshape(-1, 2), 3)   # (N*4, 3, 2)
+    u = TF.uniform(k3.reshape(-1, 2)).reshape(n, 12)
+    return u.T.contiguous(), key.contiguous()
 
 
-def _sort_material(cfg: SimConfig, st: BState):
+def _sort_material(cfg: SimConfig, st: BState, plain: bool = False):
+    """The sort section.  Its core (the 12 uniforms and the
+    redistribution) goes through the sorting-core kernel for a state on
+    CUDA (``ops/sort_cuda.py``) unless ``plain`` is set; with ``plain``, or
+    on the CPU, it runs the plain version and launches nothing."""
+    from ..ops import sort_cuda
     total_input = st.sort_counts.sum(dim=0, dtype=I32)      # (N,)
-    us, key = _sort_uniforms(st.key)
-    leftover, true_arr, false_arr = redistribute_u(
-        st.sort_counts, st.acc_sorter, us, _support_for(cfg))
+    core = sort_cuda.sort_material_plain if plain else sort_cuda.sort_material
+    leftover, true_arr, false_arr, key = core(
+        st.sort_counts.contiguous(), st.acc_sorter.contiguous(),
+        st.key.contiguous(), _support_for(cfg))
     e_input = leftover.sum(dim=0, dtype=I32)
     cont_true = st.cont_true.clone()
     cont_true[:4] += true_arr
@@ -702,10 +714,10 @@ def _finish(cfg: SimConfig, st: BState):
     return st, st.current_step >= cfg.max_steps
 
 
-def _apply_sort(cfg, st, sort_mode):
+def _apply_sort(cfg, st, sort_mode, plain: bool = False):
     st = st._replace(sensor_setting=sort_mode.to(I32))
     st = _update_accuracy(cfg, st)
-    return _sort_material(cfg, st)
+    return _sort_material(cfg, st, plain)
 
 
 def masked_uniform_choice(mask, u):
@@ -737,13 +749,16 @@ def _decode_press(a):
 
 # ---------------------------------------------------------------------------
 # Variant steps (batched: action is i32[N]).  The _*_body functions are the
-# eager steps; the public ones dispatch on the state's device.
+# eager steps; the public ones dispatch on the state's device.  A body's
+# sorting core goes through the sorting-core kernel for a state on CUDA
+# unless ``plain`` is set; ``eager_step`` sets it, so the bodies it returns
+# (the kernels' plain versions) launch no kernel.
 # ---------------------------------------------------------------------------
 
-def _sort_body(cfg: SimConfig, st: BState, action):
+def _sort_body(cfg: SimConfig, st: BState, action, plain: bool = False):
     a = action.to(I32)
     st = _update_environment(cfg, st)
-    purity, st = _apply_sort(cfg, st, a)
+    purity, st = _apply_sort(cfg, st, a, plain)
     press_id, mat, st = _sample_masked_press(cfg, st)
     st = _press_action_rules(cfg, st, press_id, mat)
     reward = _sorting_reward(cfg, st)
@@ -753,11 +768,24 @@ def _sort_body(cfg: SimConfig, st: BState, action):
                         torch.zeros_like(reward), purity)
 
 
+def frozen_sort_mode(cfg: SimConfig, st: BState, sort_policy):
+    """The frozen sort agent's action: the argmax (first maximum, as
+    ``jnp.argmax``) of its logits on the sort observation."""
+    with torch.no_grad():
+        logits = sort_policy.policy_logits(get_sort_obs(cfg, st))
+    return torch.argmax(logits, dim=-1).to(I32)
+
+
 def _press_body(cfg: SimConfig, st: BState, action,
-                use_action_masking: bool = True):
+                use_action_masking: bool = True, sort_policy=None,
+                plain: bool = False):
     a = action.to(I32)
     st = _update_environment(cfg, st)
-    purity, st = _apply_sort(cfg, st, _sorting_rules(st))
+    if sort_policy is not None:
+        sort_mode = frozen_sort_mode(cfg, st, sort_policy)
+    else:
+        sort_mode = _sorting_rules(st)
+    purity, st = _apply_sort(cfg, st, sort_mode, plain)
     press_id, mat = _decode_press(a)
     if not use_action_masking:
         valid = _validate_press(cfg, st, press_id, mat)
@@ -772,10 +800,10 @@ def _press_body(cfg: SimConfig, st: BState, action,
 
 
 def _external_body(cfg: SimConfig, st: BState, action,
-                   use_action_masking: bool = True):
+                   use_action_masking: bool = True, plain: bool = False):
     a = action.to(I32)
     st = _update_environment(cfg, st)
-    purity, st = _apply_sort(cfg, st, a // 11)
+    purity, st = _apply_sort(cfg, st, a // 11, plain)
     press_id, mat = _decode_press(a % 11)
     if not use_action_masking:
         # an invalid press leaves no trace: not even the timers tick
@@ -791,11 +819,12 @@ def _external_body(cfg: SimConfig, st: BState, action,
     return st, BStepOut(obs, sr + pr, terminated, a, sr, pr, purity)
 
 
-def _rule_body(cfg: SimConfig, st: BState, action=None):
+def _rule_body(cfg: SimConfig, st: BState, action=None,
+               plain: bool = False):
     st = _update_environment(cfg, st)
     sort_mode = _sorting_rules(st)
     press_id, mat = _check_container_level(cfg, st)
-    purity, st = _apply_sort(cfg, st, sort_mode)
+    purity, st = _apply_sort(cfg, st, sort_mode, plain)
     st = _press_action_rules(cfg, st, press_id, mat)
     sr = _sorting_reward(cfg, st)
     pr, st = _press_reward(cfg, st)
@@ -810,17 +839,24 @@ def _rule_body(cfg: SimConfig, st: BState, action=None):
 VARIANTS = ("rule", "external", "sort", "press")
 
 
-def eager_step(variant: str, use_action_masking: bool = True):
-    """The eager body of a kernel-covered variant as ``(cfg, st, action)
-    -> (st, out)``; it runs on whatever device the state lies on."""
+def eager_step(variant: str, use_action_masking: bool = True,
+               sort_policy=None):
+    """The eager body of a variant as ``(cfg, st, action) -> (st, out)``;
+    it runs on whatever device the state lies on and launches no kernel:
+    the kernels' plain version.  ``sort_policy`` (press only) is a frozen
+    sort agent (see ``step_press``)."""
+    if sort_policy is not None and variant != "press":
+        raise ValueError("only the press step takes a frozen sort_policy")
     if variant == "rule":
-        return _rule_body
+        return lambda c, s, a=None: _rule_body(c, s, a, plain=True)
     if variant == "external":
-        return lambda c, s, a: _external_body(c, s, a, use_action_masking)
+        return lambda c, s, a: _external_body(c, s, a, use_action_masking,
+                                              plain=True)
     if variant == "sort":
-        return _sort_body
+        return lambda c, s, a: _sort_body(c, s, a, plain=True)
     if variant == "press":
-        return lambda c, s, a: _press_body(c, s, a, use_action_masking)
+        return lambda c, s, a: _press_body(c, s, a, use_action_masking,
+                                           sort_policy, plain=True)
     raise ValueError(f"unknown variant {variant!r}")
 
 
@@ -838,8 +874,17 @@ def step_sort(cfg: SimConfig, st: BState, action):
 
 def step_press(cfg: SimConfig, st: BState, action, sort_policy=None,
                use_action_masking: bool = True):
+    """The press step.  Without ``sort_policy`` the sorter follows its
+    rules and the step is one launch of the step kernel on CUDA.  With
+    one, ``sort_policy`` is a frozen sort agent, an ``ActorCritic`` whose
+    parameters take no gradient (the port's counterpart of the JAX
+    package's ``(apply_fn, params)`` pair): the argmax of its logits on the
+    post-update sort observation sets the sorter, and the eager step runs
+    with its sorting core on the sorting-core kernel (CUDA) or the plain
+    core (CPU).  That step is not fused with the autoreset: the learner
+    wraps it in ``with_autoreset``."""
     if sort_policy is not None:
-        _todo("step_press with a frozen sort_policy", "Queue 1, item 5")
+        return _press_body(cfg, st, action, use_action_masking, sort_policy)
     return _dispatch(cfg, st, action, "press", use_action_masking)
 
 

@@ -19,6 +19,7 @@ tensors masked to 32 bits.  The CUDA kernel
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _MASK = 0xFFFFFFFF
@@ -137,3 +138,71 @@ def randint4(keys: torch.Tensor) -> torch.Tensor:
 def bernoulli(keys: torch.Tensor) -> torch.Tensor:
     """``vmap(jax.random.bernoulli(k, 0.5))``: bool[N]."""
     return uniform(keys) < 0.5
+
+
+# ---------------------------------------------------------------------------
+# Draws from ONE key (the learner's key chain).  The learner keeps its key
+# as an int32[2] tensor on the CPU: splitting it is host arithmetic on
+# Python ints (no device launch, no device-to-host copy), and the draws it
+# seeds run on the device the caller names.
+# ---------------------------------------------------------------------------
+
+def key_words(key) -> tuple[int, int]:
+    """The two u32 words of one key: an int32[2] tensor or a pair of
+    ints."""
+    k = key.tolist() if isinstance(key, torch.Tensor) else list(key)
+    return k[0] & _MASK, k[1] & _MASK
+
+
+def split_key(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` of one key, computed on the host:
+    int32[num, 2] on the CPU."""
+    k0, k1 = key_words(key)
+    rows = [threefry2x32(k0, k1, 0, i) for i in range(num)]
+    return _i32(torch.tensor(rows, dtype=torch.int64))
+
+
+def random_bits(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.bits(key, shape)`` (32-bit) of one key, as int64 u32
+    values: word i of the flat shape is ``o0 ^ o1`` of the block with the
+    64-bit counter (i >> 32, i & 0xffffffff), the partitionable scheme."""
+    k0, k1 = key_words(key)
+    shape = tuple(shape)
+    size = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    idx = torch.arange(size, dtype=torch.int64, device=device)
+    o0, o1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK)
+    return (o0 ^ o1).reshape(shape)
+
+
+def categorical(key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` in JAX's default
+    ``'low'`` gumbel mode: ``argmax(logits + g)`` with ``g = -log(-log(u))``
+    and ``u = max(tiny, u01 * (1 - tiny) + tiny)`` (the mul-add rounded
+    once, as XLA fuses it).  Returns int64 indices.  ``torch.log`` and XLA's
+    ``log`` may differ in the last bit, so the draw agrees with JAX on the
+    chosen index except where two perturbed logits tie to an ulp."""
+    dev = logits.device
+    u01 = bits_to_unit(random_bits(key, logits.shape, dev))
+    lo = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float32,
+                      device=dev)
+    span = torch.tensor(1.0, dtype=torch.float32, device=dev) - lo
+    u = torch.maximum(lo, fma_f32(u01, span.expand_as(u01),
+                                  lo.expand_as(u01)))
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(gumbel + logits.float(), dim=-1)
+
+
+def permutation(key, n: int, device="cpu") -> torch.Tensor:
+    """``jax.random.permutation(key, n)``: JAX's ``_shuffle``, which runs
+    ``ceil(3 ln n / ln(2**32 - 1))`` rounds; each splits the key, draws u32
+    sort keys of shape (n,) from the second half and stable-sorts by them.
+    Returns int64[n] on ``device``."""
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    x = torch.arange(n, dtype=torch.int64, device=device)
+    for _ in range(rounds):
+        ks = split_key(key)
+        key, sub = ks[0], ks[1]
+        order = torch.sort(random_bits(sub, (n,), device), stable=True).indices
+        x = x[order]
+    return x

@@ -31,7 +31,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "hypergeom.cuh"
+#include "sort_core.cuh"
 #include "threefry.cuh"
 
 enum { V_RULE = 0, V_EXTERNAL = 1, V_SORT = 2, V_PRESS = 3 };
@@ -220,46 +220,12 @@ step_mono_kernel(const StepConsts c, const StepPtrs p) {
         acc_belt[j] = fminf(fmaxf(a, 0.0f), 1.0f);
     }
 
-    // ---- 4. sort (fastb._sort_material + redistribute_u) -----------------
+    // ---- 4. sort (fastb._sort_material + redistribute_u; sort_core.cuh) --
     const int total_input = sort_c[0] + sort_c[1] + sort_c[2] + sort_c[3];
     int lv[4], tarr[4], farr[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) lv[j] = sort_c[j];
-#pragma unroll
-    for (int st = 0; st < 4; ++st) {
-        uint32_t sk0, sk1, nk0, nk1;
-        tf_split(kt0, kt1, 1u, sk0, sk1);
-        tf_split(kt0, kt1, 0u, nk0, nk1);
-        kt0 = nk0;
-        kt1 = nk1;
-        float u[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) {
-            uint32_t q0, q1;
-            tf_split(sk0, sk1, (uint32_t)j, q0, q1);
-            u[j] = tf_bits_to_unit(tf_bits(q0, q1, 0u));
-        }
-        const int target = lv[st];
-        const int true_val = (int)rintf((float)target * acc_sorter[st]);
-        const int false_val = target - true_val;
-        tarr[st] = true_val;
-        farr[st] = false_val;
-        lv[st] = false_val;
-        const int N0 = lv[0] + lv[1] + lv[2] + lv[3];
-        const int n0 = min(false_val, N0);
-        const int d0 = hg_draw<CAP>(u[0], N0, lv[0], n0, S);
-        const int N1 = N0 - lv[0];
-        const int n1 = n0 - d0;
-        const int d1 = hg_draw<CAP>(u[1], N1, lv[1], n1, S);
-        const int N2 = N1 - lv[1];
-        const int n2 = n1 - d1;
-        const int d2 = hg_draw<CAP>(u[2], N2, lv[2], n2, S);
-        const int d3 = n2 - d2;
-        lv[0] -= d0;
-        lv[1] -= d1;
-        lv[2] -= d2;
-        lv[3] -= d3;
-    }
+    sort_core<CAP>(kt0, kt1, acc_sorter, lv, tarr, farr, S);
     const int e_input = lv[0] + lv[1] + lv[2] + lv[3];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {

@@ -18,7 +18,7 @@ the JAX package by tolerance (``tests/test_torch_policy.py``).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,6 +72,26 @@ class ActorCritic(nn.Module):
     def forward(self, obs: torch.Tensor):
         return self.policy_logits(obs), self.value_fn(obs)
 
+    # batch-last (feature-major) forwards, the PPO update's layout: the
+    # same products as above on (feat, batch) operands, W @ x + b[:, None]
+
+    @staticmethod
+    def _tower_bl(tower: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+        for m in tower:
+            if isinstance(m, nn.Linear):
+                x = torch.tanh(m.weight @ x + m.bias[:, None])
+        return x
+
+    def policy_logits_bl(self, obs_bl: torch.Tensor) -> torch.Tensor:
+        """Action logits for a batch-last obs (D, B) -> (A, B)."""
+        h = self._tower_bl(self.mlp_extractor.policy_net, obs_bl.float())
+        return self.action_net.weight @ h + self.action_net.bias[:, None]
+
+    def value_fn_bl(self, obs_bl: torch.Tensor) -> torch.Tensor:
+        """Values for a batch-last obs (D, B) -> (B,)."""
+        h = self._tower_bl(self.mlp_extractor.value_net, obs_bl.float())
+        return (self.value_net.weight @ h + self.value_net.bias[:, None])[0]
+
     def predict_deterministic(self, obs: torch.Tensor, mask=None):
         """SB3 ``predict(deterministic=True)``: argmax over (masked) logits."""
         logits = self.policy_logits(obs)
@@ -86,9 +106,27 @@ def masked_logits(logits: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, logits, torch.full_like(logits, neg))
 
 
+class Dense(NamedTuple):
+    """One layer as the JAX package stores it: ``w`` is ``[in, out]``."""
+    w: np.ndarray
+    b: np.ndarray
+
+
+class ACParams(NamedTuple):
+    """The JAX package's parameter layout, as numpy arrays; its leaves in
+    order (pi (w, b) per layer, vf (w, b) per layer, action, value) are the
+    ``leaf_i`` of the JAX package's ``.npz`` files."""
+    pi: Tuple[Dense, ...]
+    vf: Tuple[Dense, ...]
+    action: Dense
+    value: Dense
+
+
 def params_from_jax(params_np, device="cuda") -> ActorCritic:
     """An ``ActorCritic`` computing the same function as the JAX package's
-    ``ACParams`` given as numpy arrays (``Dense.w`` is ``[in, out]``)."""
+    ``ACParams`` given as numpy arrays (``Dense.w`` is ``[in, out]``); any
+    object with the fields ``pi``, ``vf``, ``action`` and ``value`` will
+    do, ``ACParams`` above among them."""
     pi, vf = list(params_np.pi), list(params_np.vf)
     obs_dim = np.asarray(pi[0].w).shape[0]
     n_actions = np.asarray(params_np.action.w).shape[1]
@@ -108,3 +146,41 @@ def params_from_jax(params_np, device="cuda") -> ActorCritic:
             lin.weight.copy_(torch.tensor(np.asarray(d.w, np.float32).T))
             lin.bias.copy_(torch.tensor(np.asarray(d.b, np.float32)))
     return model.to(resolve_device(device))
+
+
+def params_to_jax(model: ActorCritic) -> ACParams:
+    """The JAX package's layout of ``model``'s parameters, as numpy."""
+    def dense(lin):
+        return Dense(lin.weight.detach().cpu().numpy().T.copy(),
+                     lin.bias.detach().cpu().numpy().copy())
+    towers = [tuple(dense(m) for m in t if isinstance(m, nn.Linear))
+              for t in (model.mlp_extractor.policy_net,
+                        model.mlp_extractor.value_net)]
+    return ACParams(towers[0], towers[1], dense(model.action_net),
+                    dense(model.value_net))
+
+
+def params_leaves(params: ACParams) -> list:
+    """The leaves of ``params`` in the JAX package's pytree order."""
+    out = []
+    for d in (*params.pi, *params.vf, params.action, params.value):
+        out += [d.w, d.b]
+    return out
+
+
+def load_npz(path: str, device="cuda") -> ActorCritic:
+    """An ``ActorCritic`` from an ``ACParams`` ``.npz`` written by the JAX
+    package's ``utils/checkpoint.save_pytree`` (or by the port's
+    ``utils/checkpoint.save_model``), read with numpy alone: the leaves
+    ``leaf_0 .. leaf_{n-1}`` are pi (w, b) per hidden layer, vf (w, b) per
+    hidden layer, then action (w, b) and value (w, b)."""
+    with np.load(path) as data:
+        n = int(data["__num_leaves__"])
+        leaves = [np.asarray(data[f"leaf_{i}"], np.float32) for i in range(n)]
+    if n < 4 or n % 4:
+        raise ValueError(f"{path}: {n} leaves is not an actor-critic")
+    layers = (n - 4) // 4
+    dense = [Dense(leaves[2 * i], leaves[2 * i + 1]) for i in range(n // 2)]
+    params = ACParams(tuple(dense[:layers]), tuple(dense[layers:2 * layers]),
+                      dense[2 * layers], dense[2 * layers + 1])
+    return params_from_jax(params, device)

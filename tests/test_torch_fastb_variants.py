@@ -40,15 +40,12 @@ def test_press_completion_events_bitwise(variant):
 
 
 def test_unported_paths_raise():
-    import torch
     from marl_sortingenv_tpu_torch.config.config import load_config
     from marl_sortingenv_tpu_torch.core import fastb as TB
 
     cfg = load_config(**BASE)
     st = TB.reset_batch(cfg, 0, 8, device="cpu")
-    a = torch.zeros(8, dtype=torch.int32)
-    for call in (lambda: TB.step_press(cfg, st, a, sort_policy=object()),
-                 lambda: TB.step_mono_model(cfg, st),
+    for call in (lambda: TB.step_mono_model(cfg, st),
                  lambda: TB.step_mono_random(cfg, st),
                  lambda: TB.from_batch_first(st),
                  lambda: TB.to_batch_first(st)):

@@ -163,8 +163,10 @@ def test_entry_points_need_cuda_or_explicit_cpu():
     model = mlp.ActorCritic(29, 22, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ppo.evaluate(cfg, ppo.spec_for("mono"), model, 4, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ppo.init_train_state(cfg, ppo.PPOConfig(), ppo.spec_for("mono"), 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ppo.evaluate(cfg, ppo.spec_for("mono"), model, 4, 2,
-                     deterministic=False, device="cpu")
+        ppo.make_train_iteration(cfg, ppo.PPOConfig(), ppo.spec_for("mono"),
+                                 mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ppo.spec_for("mono", engine="parity")
