@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase, as the check runs it
+    python3 chip_smoke.py --sweep    # build + the design sweep alone
 
 Builds the port's CUDA kernels from ``marl_sortingenv_tpu_torch/csrc``,
 holds each kernel bitwise against its plain PyTorch version on the card
@@ -11,8 +12,11 @@ them: policy evaluation and the fused-policy autoreset rollout at 4096 and
 frozen tuned sort agent at the JAX benchmark's width (4096 envs, 64 steps,
 minibatches of 16384, 4 epochs, shuffle blocks of 128); and the trainer's
 sort -> press -> mono flow.  The sort kernels are timed alone beside their
-bounds.  The second-to-last line of standard output is a JSON ``kernels``
-record; the last line is ``{"ok": true, "device": ...}``.
+bounds, and every design of kernels 1 and 2 (a group of lanes per env,
+``sort_cuda.DESIGNS``) is held bitwise against the plain version and timed
+from 4096 to 65536 envs (``--sweep`` runs that phase alone).  The
+second-to-last line of standard output is a JSON ``kernels`` record; the
+last line is ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without those lines.  Without CUDA,
 or without the port next to this file, it exits non-zero at once.  Details
 go to ``chiprun_out/chip_smoke.json``.
@@ -90,8 +94,15 @@ def launch_counts() -> dict:
 
 
 def zero_counts() -> None:
+    restore_counts({"step_mono": 0, "sort_material": 0,
+                    "sort_redistribute": 0})
+
+
+def restore_counts(counts: dict) -> None:
     from marl_sortingenv_tpu_torch.ops import mvhg_cuda, sort_cuda, step_cuda
-    step_cuda.LAUNCHES = sort_cuda.LAUNCHES = mvhg_cuda.LAUNCHES = 0
+    step_cuda.LAUNCHES = counts["step_mono"]
+    sort_cuda.LAUNCHES = counts["sort_material"]
+    mvhg_cuda.LAUNCHES = counts["sort_redistribute"]
 
 
 def no_launch(fn, *args, **kw):
@@ -178,6 +189,137 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+SWEEP_WIDTHS = (4096, 8192, 16384, 32768, 65536)
+
+
+def design_sweep(cfg, dev, gen, widths=SWEEP_WIDTHS) -> dict:
+    """Every design of kernels 1 and 2 that covers the config's support, at
+    the main path's widths (4096 and 65536 envs) and between them, on one
+    state per width: each held bitwise against the plain version, then
+    timed by the profiler (device us per launch, 100 launches) beside the
+    bound and ptxas's registers and stack.  The launches here are no main
+    path's: the counts are restored after.  Returns the rows and what
+    ``lanes_for`` picks."""
+    from marl_sortingenv_tpu_torch.core import fastb as TB
+    from marl_sortingenv_tpu_torch.ops import _build, sort_cuda, step_cuda
+    saved = launch_counts()
+    support = TB._support_for(cfg)
+    designs = sort_cuda.designs_for(support)
+    usage = {**_build.ptxas_usage("step_mono"),
+             **_build.ptxas_usage("sort_material")}
+
+    def ptxas(kname, d):
+        tag = f"{len(kname) + 7}{kname}_kernelILi{d[0]}ELi{d[1]}E"
+        hits = [v for k, v in usage.items() if tag in k]
+        return hits[0] if hits else (None, None)
+
+    rows = []
+    for n in widths:
+        st = TB.reset_batch(cfg, 23, n, device=dev)
+        for _ in range(30):
+            st, _ = step_cuda.step_mono_kernel(cfg, st, None, variant="rule",
+                                               autoreset=True)
+        a = torch.randint(0, 22, (n,), generator=gen,
+                          dtype=torch.int32).to(dev)
+        st_p, o_p = no_launch(step_cuda.step_mono_plain, cfg, st, a,
+                              variant="external", masked=True, autoreset=True)
+        n_bytes = step_bytes(cfg, st, a, st_p, o_p, n)
+        n_reset = int((st.current_step + 1 >= cfg.max_steps).sum())
+        b1 = bound(n_bytes, *step_ops(cfg, "external", support, n, n_reset))
+        counts, acc, keys = st.belt_counts, st.acc_belt, st.key
+        p2 = no_launch(sort_cuda.sort_material_plain, counts, acc, keys,
+                       support)
+        b2 = bound((16 + 16 + 8) * n + (3 * 16 + 8) * n,
+                   *sort_ops(support, n))
+        for d in designs:
+            st_k, o_k = step_cuda.step_mono_kernel(
+                cfg, st, a, variant="external", masked=True, autoreset=True,
+                design=d)
+            states_equal(st_k, st_p, (o_k, o_p),
+                         f"design sweep: step_mono {d} at {n} envs")
+            k2 = sort_cuda.sort_material_kernel(counts, acc, keys, support,
+                                                design=d)
+            for nm, x, y in zip(("leftover", "true", "false", "keys"), k2,
+                                p2):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"design sweep: sort_material {d} "
+                                         f"at {n} envs: {nm} differs")
+            for kname, fn, b in (
+                    ("step_mono", lambda d=d: step_cuda.step_mono_kernel(
+                        cfg, st, a, variant="external", masked=True,
+                        autoreset=True, design=d), b1),
+                    ("sort_material", lambda d=d: sort_cuda.
+                     sort_material_kernel(counts, acc, keys, support,
+                                          design=d), b2)):
+                fn()
+                us = profile_device_us(fn, 100, f"{kname}_kernel")
+                regs, stack = ptxas(kname, d)
+                rows.append({"kernel": kname, "lanes": d[0], "cap": d[1],
+                             "n_envs": n, "device_us": us,
+                             "bound_us": b["bound_ms"] * 1e3,
+                             "bound_by": b["bound_by"], "registers": regs,
+                             "stack_bytes": stack, "bitwise": True})
+                print(f"design sweep: {kname} lanes {d[0]} cap {d[1]} at {n} "
+                      f"envs, support {support}: {us:.3f} us per launch "
+                      f"(profiler device time), bound "
+                      f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), "
+                      f"{regs} registers, {stack} bytes stack; == plain, "
+                      f"bitwise", flush=True)
+    restore_counts(saved)
+    chosen = {"step_mono": {n: step_cuda.lanes_for(support, n)
+                            for n in widths},
+              "sort_material": {n: sort_cuda.lanes_for(support, n)
+                                for n in widths}}
+    for kname, by_n in chosen.items():
+        for n, d in by_n.items():
+            best = min((r for r in rows if r["kernel"] == kname
+                        and r["n_envs"] == n), key=lambda r: r["device_us"])
+            print(f"design sweep: {kname} at {n} envs, support {support}: "
+                  f"lanes_for picks {d}, the fastest here is "
+                  f"({best['lanes']}, {best['cap']}) at "
+                  f"{best['device_us']:.3f} us", flush=True)
+    return {"support": support, "rows": rows,
+            "lanes_for": {k: {str(n): list(d) for n, d in v.items()}
+                          for k, v in chosen.items()}}
+
+
+def step_bytes(cfg, st, a, out_st, out, n: int) -> int:
+    """The bytes one step must move: every input leaf and the action read
+    once, every state leaf and output written once."""
+    from marl_sortingenv_tpu_torch.ops import step_cuda
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in (*[getattr(st, nm) for nm in step_cuda.IN_NAMES],
+                            a))
+    n_bytes += sum(x.numel() * x.element_size() for x in out_st
+                   if x is not None)
+    n_bytes += sum(out[k].numel() * out[k].element_size()
+                   for k in (0, 2, 3, 6))      # obs, terminated, action, purity
+    return n_bytes + 2 * 4 * n                 # raw sort arg, press reward
+
+
+def sweep_configs():
+    """The configs of the design sweep: the default (support 16) and one at
+    support 32, the cap of the widest group."""
+    from marl_sortingenv_tpu_torch.config.config import load_config
+    return {"default": load_config(bale_mode="events"),
+            "support_32": load_config(bale_mode="events",
+                                      baseline_accuracy=(0.5, 0.5, 0.5, 0.5))}
+
+
+def sweep_only(dev) -> int:
+    """``--sweep``: build, then the design sweep alone (no main path)."""
+    from marl_sortingenv_tpu_torch.ops import _build
+    print(gpu_line(), flush=True)
+    _build.build_all()
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    report = {name: design_sweep(c, dev, gen)
+              for name, c in sweep_configs().items()}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "design_sweep.json").write_text(json.dumps(report, indent=1))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -190,6 +332,8 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--sweep"]:
+        return sweep_only(dev)
 
     # ---- 1. the card ------------------------------------------------------
     gpu = gpu_line()
@@ -408,15 +552,8 @@ def main() -> int:
         wall_ms = cuda_ms(launch, 200)
         dev_us = profile_device_us(launch, 100, "step_mono_kernel")
         plain_ms = cuda_ms(plain, 20)
-        n_bytes = sum(x.numel() * x.element_size()
-                      for x in (*[getattr(st, nm) for nm in
-                                  step_cuda.IN_NAMES], a))
         out_st, out = launch()
-        n_bytes += sum(x.numel() * x.element_size() for x in out_st
-                       if x is not None)
-        n_bytes += sum(out[k].numel() * out[k].element_size()
-                       for k in (0, 2, 3, 6))    # obs, terminated, action, purity
-        n_bytes += 2 * 4 * n                     # raw sort arg, press reward
+        n_bytes = step_bytes(cfg, st, a, out_st, out, n)
         n_reset = int((st.current_step + 1 >= cfg.max_steps).sum())
         int_ops, f32_ops = step_ops(cfg, "external", TB._support_for(cfg),
                                     n, n_reset)
@@ -669,6 +806,14 @@ def main() -> int:
                   f"{b['ops_ms'] * 1e3:.3f} us)", flush=True)
         del k3_out
     report.update(sk)
+
+    # ---- 11. every design of kernels 1 and 2, in one call ------------------
+    t0 = time.perf_counter()
+    report["design_sweep"] = {name: design_sweep(c, dev, gen)
+                              for name, c in sweep_configs().items()}
+    print(f"phase 11: design sweep of kernels 1 and 2 at {SWEEP_WIDTHS} "
+          f"envs, supports 16 and 32, each design == plain bitwise "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
     report["main_path_launches"] = main_launches
     for kname, v in main_launches.items():
         if v <= 0:
@@ -689,6 +834,7 @@ def main() -> int:
          "replaces": "marl_sortingenv_tpu/ops/step_pallas.py:636",
          "launches": main_launches["step_mono"],
          "max_abs_err": max_err, "bitwise": True, "n_envs": 4096,
+         "design": list(step_cuda.lanes_for(support, 4096)),
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
          "bound_by": k["bound_by"], "library_ms": None},
         {"name": "sort_material", "route": "cuda",
@@ -696,6 +842,7 @@ def main() -> int:
          "replaces": "marl_sortingenv_tpu/ops/sort_pallas.py:257",
          "launches": main_launches["sort_material"],
          "max_abs_err": max_err_k2, "bitwise": True, "n_envs": 4096,
+         "design": list(sort_cuda.lanes_for(support, 4096)),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": None},

@@ -64,13 +64,6 @@ class PPOConfig:
     # the [T, N]-flattened batch (B envs at one timestep).  Falls back to 1
     # when B does not divide the batch or the minibatch.
     shuffle_block: int = 1
-    # Accepted for the JAX learner's signature, with no effect here: they
-    # tune XLA's scheduling of the jitted scans (unroll factors, an
-    # optimization barrier around the gathered minibatch), and the port
-    # runs eagerly, with no scan to unroll and no fusion to keep apart.
-    rollout_unroll: int = 1
-    mb_unroll: int = 1
-    mb_barrier: bool = True
 
     @classmethod
     def tuned(cls, **over) -> "PPOConfig":
@@ -489,12 +482,10 @@ def ppo_update(pcfg: PPOConfig, ts: TrainState, trs: Transition,
 
 def make_train_iteration(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
                          sort_policy=None, use_action_masking=True,
-                         donate: bool = False, mesh=None):
+                         mesh=None):
     """One PPO iteration ``ts -> (ts, stats)``: rollout + GAE + update.
 
-    ``donate`` is accepted and has no effect: PyTorch frees the old
-    state's buffers once the caller drops it.  ``mesh`` (a sharded
-    rollout) raises until multi-GPU is ported."""
+    ``mesh`` (a sharded rollout) raises until multi-GPU is ported."""
     if mesh is not None:
         _todo("make_train_iteration(mesh=...)")
     step_fn = spec.step_fn(sort_policy, use_action_masking)
@@ -512,10 +503,9 @@ def make_train_iteration(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
 
 def make_train_run(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
                    n_iters: int, sort_policy=None,
-                   use_action_masking=True, mesh=None, seg_unroll: int = 1):
+                   use_action_masking=True, mesh=None):
     """``n_iters`` PPO iterations ``ts -> (ts, stats)``, each stats entry
-    stacked ``[n_iters]``.  ``seg_unroll`` is accepted and has no effect
-    (it unrolled the JAX learner's scan over iterations)."""
+    stacked ``[n_iters]``."""
     it = make_train_iteration(cfg, pcfg, spec, sort_policy,
                               use_action_masking, mesh=mesh)
 

@@ -74,9 +74,29 @@ def build_all() -> dict[str, Path]:
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
     return {src.stem: _lib_path(src.stem, digest)
             for src in sorted(CSRC.glob("*.cu"))}
+
+
+def ptxas_usage(name: str) -> dict:
+    """``{mangled kernel name: (registers, stack bytes)}`` of the library
+    built from ``csrc/<name>.cu``, from nvcc's ``-Xptxas -v`` log kept
+    beside it."""
+    log = _lib_path(name, _digest()).with_suffix(".log")
+    usage, entry = {}, None
+    for line in (log.read_text().splitlines() if log.exists() else ()):
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif entry and "registers" in line:
+            regs = int(line.split("Used ")[1].split(" registers")[0])
+            stack = (int(line.split(" bytes cumulative stack")[0]
+                         .rsplit(" ", 1)[1])
+                     if "cumulative stack" in line else 0)
+            usage[entry] = (regs, stack)
+            entry = None
+    return usage
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -2,13 +2,21 @@
 
 Replaces the TPU kernel
 ``marl_sortingenv_tpu/ops/sort_pallas.py::sort_material_fused``.  The
-kernel (``csrc/sort_material.cu``, CUDA C++ for sm_90a, one thread per env)
-computes, bit for bit, what ``sort_material_plain`` computes: the 12
-uniforms of ``fastb._sort_uniforms`` and the redistribution of
+kernel (``csrc/sort_material.cu``, CUDA C++ for sm_90a) computes, bit for
+bit, what ``sort_material_plain`` computes: the 12 uniforms of
+``fastb._sort_uniforms`` and the redistribution of
 ``fastb.redistribute_u``, returning the new keys.  It runs the sorting core
 of every eager step whose state lies on CUDA (the frozen-sort press step of
 the training flow); the full-step kernel (``ops/step_cuda.py``) carries its
 own copy of the same device code (``csrc/sort_core.cuh``).
+
+The kernel comes in several designs, ``(lanes, cap)``: a group of
+``lanes`` lanes of a warp sorts one env, covering supports up to ``cap``
+(``DESIGNS``; ``(1, 104)`` is one thread per env at any support).
+``lanes_for(support, n)`` picks the design from the table that the card's
+timings chose (``PERF.md``); a design that is not built, or does not cover
+the support, raises.  Both this kernel and the step kernel
+(``ops/step_cuda.py``) are built in every design.
 
 ``sort_material`` launches the kernel for tensors on CUDA and runs the
 plain version for tensors on the CPU.  ``LAUNCHES`` counts the kernel's
@@ -28,13 +36,91 @@ LAUNCHES = 0
 _I32, _F32 = torch.int32, torch.float32
 
 
+# (lanes, cap) of every design the sources build (STEP_DESIGNS in
+# csrc/step_mono.cu, SORT_DESIGNS in csrc/sort_material.cu): `lanes` lanes
+# per env, supports up to `cap`; (1, 104) is the generic one-lane path, and
+# a one-lane design below it runs at exactly its cap (a compile-time
+# support keeps its sampler's arrays in registers).
+DESIGNS = ((1, 16), (4, 16), (8, 16), (16, 16), (8, 32), (16, 32), (32, 32),
+           (1, 104))
+
+# lanes_for's table: (largest support, smallest n or 0, design), the first
+# entry whose bounds admit (support, n) and whose design covers the support
+# wins.  From the design sweep of chip_smoke.py on an H100 (PERF.md): the
+# fastest design at 4096 .. 65536 envs, switching halfway between measured
+# widths.
+LANES_TABLE = ((16, 24576, (1, 16)), (16, 0, (16, 16)),
+               (32, 12288, (16, 32)), (32, 0, (32, 32)), (104, 0, (1, 104)))
+
+
+def pick_design(table, support: int, n: int) -> tuple:
+    """The first design of ``table`` whose support and batch bounds admit
+    ``(support, n)`` and which covers ``support``."""
+    check_support(support)
+    for max_support, min_n, design in table:
+        if support <= max_support and n >= min_n and covers(design, support):
+            return design
+    raise ValueError(f"no design for support {support} at n = {n}")
+
+
+def lanes_for(support: int, n: int) -> tuple:
+    """The sorting-core kernel's design ``(lanes, cap)`` for ``support``
+    and ``n`` envs."""
+    return pick_design(LANES_TABLE, support, n)
+
+
+def covers(design, support: int) -> bool:
+    """Whether ``design`` runs the sampler at ``support``."""
+    lanes, cap = design
+    if lanes == 1 and cap < FB._HG_SUPPORT:
+        return support == cap
+    return support <= cap
+
+
+def designs_for(support: int) -> list:
+    """The built designs that cover ``support``."""
+    return [d for d in DESIGNS if covers(d, support)]
+
+
+def check_design(design, support: int) -> tuple:
+    """``design`` as a ``(lanes, cap)`` tuple; raises unless it is built
+    and covers ``support``."""
+    check_support(support)
+    design = tuple(design)
+    if design not in DESIGNS:
+        raise ValueError(f"design {design} is not built; the designs are "
+                         f"{DESIGNS}")
+    if not covers(design, support):
+        raise ValueError(f"design {design} covers supports up to "
+                         f"{design[1]}, not {support}"
+                         + (" (a one-lane design runs at its cap alone)"
+                            if design[0] == 1 else ""))
+    return design
+
+
+def bind_designs(lib, name: str) -> None:
+    """Raise unless the library ``name`` builds exactly ``DESIGNS``."""
+    fn = getattr(lib, f"{name}_designs")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    buf = (ctypes.c_int * (2 * len(DESIGNS)))()
+    k = fn(buf, len(DESIGNS))
+    built = tuple((buf[2 * j], buf[2 * j + 1])
+                  for j in range(min(k, len(DESIGNS))))
+    if k != len(DESIGNS) or built != DESIGNS:
+        raise RuntimeError(f"{name}.cu builds designs {built} (of {k}), "
+                           f"the wrapper expects {DESIGNS}")
+
+
 def _library():
     from . import _build
     lib = _build.load("sort_material")
     if not getattr(lib, "_sort_material_bound", False):
         lib.sort_material_launch.restype = ctypes.c_int
         lib.sort_material_launch.argtypes = (
-            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 8)
+            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        bind_designs(lib, "sort_material")
         lib._sort_material_bound = True
     return lib
 
@@ -56,10 +142,11 @@ def check_support(support: int) -> None:
                          f"[1, {FB._HG_SUPPORT}]")
 
 
-def sort_material_kernel(counts, acc, keys, support: int):
+def sort_material_kernel(counts, acc, keys, support: int, design=None):
     """The sorting core of every env through the kernel (CUDA tensors):
     counts i32[4, N], acc f32[4, N], keys i32[N, 2] -> (leftover, true,
-    false) i32[4, N] and the new keys i32[N, 2]."""
+    false) i32[4, N] and the new keys i32[N, 2].  ``design`` is a
+    ``(lanes, cap)`` of ``DESIGNS``; by default ``lanes_for(support, N)``."""
     global LAUNCHES
     dev = counts.device
     if dev.type != "cuda":
@@ -67,7 +154,8 @@ def sort_material_kernel(counts, acc, keys, support: int):
     n = counts.shape[-1] if counts.dim() == 2 else 0
     if n < 1:
         raise ValueError("the sort kernel needs at least one env")
-    check_support(support)
+    lanes, cap = check_design(
+        lanes_for(support, n) if design is None else design, support)
     check_operand("counts", counts, (4, n), _I32, dev)
     check_operand("acc", acc, (4, n), _F32, dev)
     check_operand("keys", keys, (n, 2), _I32, dev)
@@ -80,7 +168,7 @@ def sort_material_kernel(counts, acc, keys, support: int):
         rc = lib.sort_material_launch(
             n, support, counts.data_ptr(), acc.data_ptr(), keys.data_ptr(),
             leftover.data_ptr(), true_arr.data_ptr(), false_arr.data_ptr(),
-            new_keys.data_ptr(), ctypes.c_void_p(stream))
+            new_keys.data_ptr(), lanes, cap, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"sort_material kernel launch failed: "
                            f"cudaError_t {rc}")

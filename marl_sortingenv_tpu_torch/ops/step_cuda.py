@@ -1,11 +1,14 @@
 """The whole fastb env step as one hand-written CUDA kernel.
 
 Replaces the TPU kernel ``marl_sortingenv_tpu/ops/step_pallas.py::step_mono``.
-The kernel (``csrc/step_mono.cu``, CUDA C++ for sm_90a) runs one thread per
-env and computes, bit for bit, what the eager step of ``core/fastb.py``
-computes, for every variant ('rule', 'external', 'sort', 'press'), masked
-flag and autoreset flag.  It returns the pre-tanh sorting-reward argument;
-the wrapper applies the tanh as the eager step does.
+The kernel (``csrc/step_mono.cu``, CUDA C++ for sm_90a) computes, bit for
+bit, what the eager step of ``core/fastb.py`` computes, for every variant
+('rule', 'external', 'sort', 'press'), masked flag and autoreset flag.  It
+returns the pre-tanh sorting-reward argument; the wrapper applies the tanh
+as the eager step does.  It comes in the designs of
+``sort_cuda.DESIGNS`` (a group of ``lanes`` lanes per env, supports up to
+``cap``); ``lanes_for(support, n)`` picks one from the table that the
+card's timings chose (``PERF.md``).
 
 ``step_mono`` launches the kernel for a state on CUDA and runs the plain
 version ``step_mono_plain`` for a state on the CPU.  ``LAUNCHES`` counts
@@ -22,6 +25,7 @@ import torch
 
 from ..config.config import SimConfig
 from ..core import fastb as FB
+from .sort_cuda import bind_designs, check_design, pick_design
 
 LAUNCHES = 0
 
@@ -42,6 +46,21 @@ STATE_OUT = ("input_counts", "belt_counts", "sort_counts", "acc_belt",
              "gen_pattern_first", "gen_pattern_idx", "gen_step_counter",
              "current_step", "total_input_units", "key")
 EXTRA_OUT = ("obs", "raw_sort", "press_reward", "purity", "action", "term")
+
+
+# lanes_for's table (see sort_cuda.pick_design), from the design sweep of
+# chip_smoke.py on an H100 (PERF.md): the fastest design at 4096, 8192,
+# 16384, 32768 and 65536 envs, switching halfway between measured widths.
+# Wide groups win while the batch fits in one wave of the card; past that
+# their registers times lanes cost more waves than the shorter chain saves.
+LANES_TABLE = ((16, 12288, (1, 16)), (16, 6144, (8, 16)), (16, 0, (16, 16)),
+               (32, 6144, (8, 32)), (32, 0, (16, 32)), (104, 0, (1, 104)))
+
+
+def lanes_for(support: int, n: int) -> tuple:
+    """The step kernel's design ``(lanes, cap)`` for ``support`` and ``n``
+    envs."""
+    return pick_design(LANES_TABLE, support, n)
 
 
 class StepConsts(ctypes.Structure):
@@ -116,7 +135,9 @@ def _library():
         lib.step_mono_launch.restype = ctypes.c_int
         lib.step_mono_launch.argtypes = [
             ctypes.POINTER(StepConsts), ctypes.POINTER(ctypes.c_void_p),
-            ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+            ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        bind_designs(lib, "step_mono")
         if lib.step_mono_consts_size() != ctypes.sizeof(StepConsts):
             raise RuntimeError("StepConsts layout differs from step_mono.cu")
         want = (len(IN_NAMES) + 1) * 100 + len(STATE_OUT) + len(EXTRA_OUT)
@@ -156,8 +177,11 @@ def _shape(name: str, n: int, E: int, variant: str) -> tuple:
 
 
 def step_mono_kernel(cfg: SimConfig, st: FB.BState, action, *, variant: str,
-                     masked: bool = True, autoreset: bool = False):
-    """One step of every env of ``st`` (on CUDA) through the kernel."""
+                     masked: bool = True, autoreset: bool = False,
+                     design=None):
+    """One step of every env of ``st`` (on CUDA) through the kernel.
+    ``design`` is a ``(lanes, cap)`` of ``sort_cuda.DESIGNS``; by default
+    ``lanes_for(support, N)``."""
     global LAUNCHES
     FB._require_events(cfg)
     if variant not in _VARIANT_ID:
@@ -168,6 +192,9 @@ def step_mono_kernel(cfg: SimConfig, st: FB.BState, action, *, variant: str,
     n, E = st.current_step.shape[0], cfg.max_press_events
     if n < 1:
         raise ValueError("the step kernel needs at least one env")
+    support = FB._support_for(cfg)
+    lanes, cap = check_design(
+        lanes_for(support, n) if design is None else design, support)
     for name in IN_NAMES:
         x, shape, dtype = getattr(st, name), _shape(name, n, E, variant), \
             _LEAVES[name][1]
@@ -199,7 +226,7 @@ def step_mono_kernel(cfg: SimConfig, st: FB.BState, action, *, variant: str,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         rc = lib.step_mono_launch(ctypes.byref(consts), in_ptrs, out_ptrs,
-                                  ctypes.c_void_p(stream))
+                                  lanes, cap, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"step_mono kernel launch failed: cudaError_t {rc}")
     LAUNCHES += 1

@@ -373,7 +373,7 @@ def test_train_iteration_and_run_agree():
         ts_a, stats = it(ts_a)
         losses.append(float(stats["loss"]))
     ts_b = ppo.init_train_state(cfg, pc, spec, 4, seed=7, device="cpu")
-    ts_b, seg = ppo.make_train_run(cfg, pc, spec, 3, seg_unroll=3)(ts_b)
+    ts_b, seg = ppo.make_train_run(cfg, pc, spec, 3)(ts_b)
     assert seg["mean_episode_return"].shape == (3,)
     assert seg["loss"].tolist() == losses
     for p, q in zip(ts_a.params.parameters(), ts_b.params.parameters()):

@@ -18,9 +18,10 @@ On the CPU:
   wrapper, and the frozen-sort press step reaches it once per step.
 
 On the card (marker ``cuda``, skipped without one): each kernel against its
-plain version, bitwise, at 1, 127, 4096 and 65536 envs and at supports 16
-and the generic path, and the frozen-sort press step through kernel 2
-against its plain path.  JAX is imported only inside the CPU tests, so the
+plain version, bitwise, at 1, 127, 4096, 4097 and 65536 envs and at
+supports 16, 24, 32 and 40 -- kernel 2 in every design that covers the
+support (``sort_cuda.DESIGNS``) -- and the frozen-sort press step through
+kernel 2 against its plain path.  JAX is imported only inside the CPU tests, so the
 card's tests run where JAX is absent:
     python -m pytest tests/test_torch_sort_kernel.py -m cuda --noconftest -o addopts=""
 """
@@ -145,6 +146,21 @@ def test_wrappers_take_plain_versions_on_cpu():
     b = mvhg_cuda.sort_redistribute_plain(counts.T, acc.T, us.T, 16)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert (sort_cuda.LAUNCHES, mvhg_cuda.LAUNCHES) == before
+
+
+def test_sort_kernel_checks_its_arguments():
+    """The sorting-core kernel's wrapper refuses CPU tensors before it
+    picks a design; the design checks are plain Python."""
+    z4 = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        sort_cuda.sort_material_kernel(z4, torch.zeros((4, 8)),
+                                       torch.zeros((8, 2), dtype=torch.int32),
+                                       16, design=(16, 16))
+    assert sort_cuda.lanes_for(16, 4096) in sort_cuda.DESIGNS
+    with pytest.raises(ValueError, match="covers supports up to 32"):
+        sort_cuda.check_design((32, 32), 40)
+    with pytest.raises(ValueError, match="support"):
+        sort_cuda.lanes_for(105, 1)
 
 
 def test_kernels_refuse_cpu_tensors_and_large_supports():
@@ -276,19 +292,35 @@ def cuda():
 
 
 GENERIC = {"baseline_accuracy": (0.5, 0.5, 0.5, 0.5)}
+# configs by sampler support (fastb._support_for)
+SUPPORT_CFGS = {16: {}, 24: {"noise_sorting": 0.2}, 32: GENERIC,
+                40: {"baseline_accuracy": (0.2, 0.2, 0.2, 0.2)}}
+# every (support, design) pair with the design covering the support; None
+# is the design lanes_for picks, through sort_material
+SORT_CASES = [(s, d) for s in sorted(SUPPORT_CFGS)
+              for d in [None] + sort_cuda.designs_for(s)]
+
+
+def _case_id(v):
+    if isinstance(v, tuple):
+        return f"L{v[0]}c{v[1]}"
+    return "picked" if v is None else f"s{v}"
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 127, 4096, 65536])
-@pytest.mark.parametrize("cfg_kw", [{}, GENERIC], ids=["s16", "generic"])
-def test_cuda_sort_material_matches_plain(cuda, n, cfg_kw):
-    cfg = load_config(bale_mode="events", **cfg_kw)
-    support = TB._support_for(cfg)
-    assert (support == 16) == (not cfg_kw)
+@pytest.mark.parametrize("n", [1, 127, 4096, 4097, 65536])
+@pytest.mark.parametrize("support,design", SORT_CASES, ids=_case_id)
+def test_cuda_sort_material_matches_plain(cuda, n, support, design):
+    cfg = load_config(bale_mode="events", **SUPPORT_CFGS[support])
+    assert TB._support_for(cfg) == support
     st = _stepped(cfg, n, 9, device=cuda)
     counts, acc, keys = _sort_inputs(cfg, st)
     before = sort_cuda.LAUNCHES
-    got = sort_cuda.sort_material(counts, acc, keys, support)
+    if design is None:
+        got = sort_cuda.sort_material(counts, acc, keys, support)
+    else:
+        got = sort_cuda.sort_material_kernel(counts, acc, keys, support,
+                                             design=design)
     assert sort_cuda.LAUNCHES == before + 1
     ref = sort_cuda.sort_material_plain(counts, acc, keys, support)
     torch.cuda.synchronize()
@@ -298,7 +330,7 @@ def test_cuda_sort_material_matches_plain(cuda, n, cfg_kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 127, 4096, 65536])
+@pytest.mark.parametrize("n", [1, 127, 4096, 4097, 65536])
 @pytest.mark.parametrize("cfg_kw", [{}, GENERIC], ids=["s16", "generic"])
 def test_cuda_sort_redistribute_matches_plain(cuda, n, cfg_kw):
     cfg = load_config(bale_mode="events", **cfg_kw)

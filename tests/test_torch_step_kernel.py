@@ -7,7 +7,10 @@ run the way tests/test_step_pallas.py runs it (max_steps=36, so E = 9;
 the fused autoreset at max_steps=3.
 
 On the card (marker ``cuda``, skipped without one): the CUDA kernel against
-``step_mono_plain`` on the same CUDA tensors, bitwise.  This module imports
+``step_mono_plain`` on the same CUDA tensors, bitwise, in every design that
+covers the config's support (``sort_cuda.DESIGNS``), at supports 16, 24,
+32 and 40 and at 1, 127, 4096, 4097 and 65536 envs.  On the CPU also: the
+design table ``lanes_for`` and the wrapper's argument checks.  This module imports
 JAX only inside the CPU tests, so the card's tests run where JAX is absent:
     python -m pytest tests/test_torch_step_kernel.py -m cuda --noconftest -o addopts=""
 """
@@ -17,9 +20,23 @@ import torch
 
 from marl_sortingenv_tpu_torch.config.config import load_config
 from marl_sortingenv_tpu_torch.core import fastb as TB
-from marl_sortingenv_tpu_torch.ops import step_cuda
+from marl_sortingenv_tpu_torch.ops import sort_cuda, step_cuda
 
 N_ACTIONS = {"rule": 22, "external": 22, "sort": 2, "press": 11}
+# configs by sampler support (fastb._support_for)
+SUPPORT_CFGS = {24: {"noise_sorting": 0.2},
+                32: {"baseline_accuracy": (0.5, 0.5, 0.5, 0.5)},
+                40: {"baseline_accuracy": (0.2, 0.2, 0.2, 0.2)}}
+
+
+designs_for = sort_cuda.designs_for
+
+
+def design_id(d):
+    return f"L{d[0]}c{d[1]}"
+
+
+DESIGNS_16 = designs_for(16)
 CASES = [("rule", True), ("external", True), ("external", False),
          ("sort", True), ("press", True), ("press", False)]
 
@@ -140,6 +157,63 @@ def test_kernel_refuses_a_cpu_state():
         step_cuda.step_mono_kernel(cfg, st, None, variant="rule")
 
 
+@pytest.mark.parametrize("table", ["step", "sort"])
+def test_lanes_for_covers_every_support(table):
+    """Every support the engine allows (1 .. 104) gets a built design that
+    covers it, at any batch size; 105 raises."""
+    lanes_for = (step_cuda if table == "step" else sort_cuda).lanes_for
+    for support in range(1, 105):
+        for n in (1, 127, 4096, 4097, 65536, 1 << 20):
+            lanes, cap = lanes_for(support, n)
+            assert (lanes, cap) in sort_cuda.DESIGNS
+            assert cap >= support and cap % lanes == 0
+            assert lanes * (cap // lanes) >= support
+            assert sort_cuda.covers((lanes, cap), support)
+    with pytest.raises(ValueError, match="support"):
+        lanes_for(105, 4096)
+    with pytest.raises(ValueError, match="support"):
+        lanes_for(0, 4096)
+
+
+def test_design_checks():
+    """A design that is not built, or that does not cover the support,
+    raises; so does a support outside the engine's range."""
+    assert sort_cuda.check_design([16, 16], 16) == (16, 16)
+    assert sort_cuda.check_design((1, 104), 104) == (1, 104)
+    with pytest.raises(ValueError, match="not built"):
+        sort_cuda.check_design((2, 16), 16)
+    with pytest.raises(ValueError, match="covers supports up to 16"):
+        sort_cuda.check_design((16, 16), 24)
+    assert sort_cuda.check_design((16, 16), 8) == (16, 16)
+    with pytest.raises(ValueError, match="one-lane design runs at its cap"):
+        sort_cuda.check_design((1, 16), 8)
+    assert sort_cuda.designs_for(40) == [(1, 104)]
+    assert (1, 16) not in sort_cuda.designs_for(24)
+    with pytest.raises(ValueError, match="support"):
+        sort_cuda.check_design((1, 104), 105)
+    table = ((16, 4096, (8, 16)), (16, 0, (16, 16)), (104, 0, (1, 104)))
+    assert sort_cuda.pick_design(table, 16, 4095) == (16, 16)
+    assert sort_cuda.pick_design(table, 16, 4096) == (8, 16)
+    assert sort_cuda.pick_design(table, 17, 1 << 20) == (1, 104)
+    with pytest.raises(ValueError, match="no design"):
+        sort_cuda.pick_design(((16, 0, (16, 16)),), 24, 1)
+
+
+def test_kernel_checks_its_arguments():
+    """The step kernel's wrapper refuses an unknown variant before it
+    looks at the device, and a CPU state before it picks a design."""
+    cfg = load_config(bale_mode="events", max_steps=36)
+    st = TB.reset_batch(cfg, 0, 8, device="cpu")
+    with pytest.raises(ValueError, match="unknown variant"):
+        step_cuda.step_mono_kernel(cfg, st, None, variant="mono")
+    with pytest.raises(ValueError, match="CUDA"):
+        step_cuda.step_mono_kernel(cfg, st, None, variant="rule",
+                                   design=(2, 16))
+    with pytest.raises(ValueError, match="step_mono runs on CUDA or the CPU"):
+        step_cuda.step_mono(cfg, st._replace(current_step=st.current_step.to(
+            "meta")), None, variant="rule")
+
+
 def test_full_bale_mode_raises():
     cfg = load_config(bale_mode="full", max_steps=36)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -158,7 +232,10 @@ def cuda():
 
 
 def _kernel_vs_plain(cfg, variant, masked, autoreset, n, steps, dev,
-                     seed=0, action_range=None):
+                     seed=0, action_range=None, design=None):
+    """``steps`` steps through the kernel (in ``design``, or the one
+    ``lanes_for`` picks through ``step_mono``) and through the plain
+    version, every leaf and output bitwise after each."""
     st_k = st_p = TB.reset_batch(cfg, seed, n, device=dev)
     gen = torch.Generator(device="cpu").manual_seed(seed)
     lo, hi = action_range or (0, N_ACTIONS[variant])
@@ -169,8 +246,14 @@ def _kernel_vs_plain(cfg, variant, masked, autoreset, n, steps, dev,
         a = a.to(dev)
         a = None if variant == "rule" else a
         before = step_cuda.LAUNCHES
-        st_k, out_k = step_cuda.step_mono(cfg, st_k, a, variant=variant,
-                                          masked=masked, autoreset=autoreset)
+        if design is None:
+            st_k, out_k = step_cuda.step_mono(cfg, st_k, a, variant=variant,
+                                              masked=masked,
+                                              autoreset=autoreset)
+        else:
+            st_k, out_k = step_cuda.step_mono_kernel(
+                cfg, st_k, a, variant=variant, masked=masked,
+                autoreset=autoreset, design=design)
         assert step_cuda.LAUNCHES == before + 1
         st_p, out_p = step_cuda.step_mono_plain(
             cfg, st_p, a, variant=variant, masked=masked,
@@ -181,49 +264,81 @@ def _kernel_vs_plain(cfg, variant, masked, autoreset, n, steps, dev,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", DESIGNS_16, ids=design_id)
 @pytest.mark.parametrize("autoreset", [False, True])
 @pytest.mark.parametrize("variant,masked", CASES)
-def test_cuda_kernel_matches_plain(cuda, variant, masked, autoreset):
+def test_cuda_kernel_matches_plain(cuda, variant, masked, autoreset, design):
     cfg = load_config(bale_mode="events", max_steps=20, balesize=24)
-    _kernel_vs_plain(cfg, variant, masked, autoreset, 1000, 24, cuda)
+    _kernel_vs_plain(cfg, variant, masked, autoreset, 1000, 24, cuda,
+                     design=design)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("design", DESIGNS_16, ids=design_id)
 @pytest.mark.parametrize("variant,masked", CASES[1:])
-def test_cuda_kernel_out_of_range_actions(cuda, variant, masked):
+def test_cuda_kernel_out_of_range_actions(cuda, variant, masked, design):
     """Negative and too-large actions (and the int32 extremes) decode with
     floor division and modulo in the kernel, as in the plain version."""
     cfg = load_config(bale_mode="events", max_steps=20, balesize=24)
     _kernel_vs_plain(cfg, variant, masked, True, 1000, 24, cuda,
-                     action_range=(-40, 40))
+                     action_range=(-40, 40), design=design)
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_noise_and_press_completion(cuda):
+@pytest.mark.parametrize("design", DESIGNS_16, ids=design_id)
+def test_cuda_kernel_noise_and_press_completion(cuda, design):
     cfg = load_config(bale_mode="events", max_steps=24, noise_sorting=0.05,
                       press_time_1=1, press_time_2=2, balesize=16)
-    st = _kernel_vs_plain(cfg, "rule", True, True, 4096, 30, cuda)
+    st = _kernel_vs_plain(cfg, "rule", True, True, 4096, 30, cuda,
+                          design=design)
     assert int(st.ev_cnt.max()) > 0
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_generic_support(cuda):
-    """A config whose sampler support is not 16 takes the kernel's generic
-    (runtime-support) instantiation."""
+@pytest.mark.parametrize("support,design", [
+    (s, d) for s in sorted(SUPPORT_CFGS) for d in designs_for(s)],
+    ids=lambda v: design_id(v) if isinstance(v, tuple) else f"s{v}")
+def test_cuda_kernel_generic_support(cuda, support, design):
+    """Configs whose sampler support is not 16 (24 at noise 0.2, 32 and 40
+    at lower baseline accuracies) in every design that covers them; 40
+    only in the one-lane generic design."""
     cfg = load_config(bale_mode="events", max_steps=20,
-                      baseline_accuracy=(0.5, 0.5, 0.5, 0.5))
-    assert TB._support_for(cfg) != 16
-    _kernel_vs_plain(cfg, "external", True, True, 300, 24, cuda)
+                      **SUPPORT_CFGS[support])
+    assert TB._support_for(cfg) == support
+    _kernel_vs_plain(cfg, "external", True, True, 300, 24, cuda,
+                     design=design)
 
 
 @pytest.mark.cuda
-def test_cuda_kernel_deep_event_log(cuda):
+@pytest.mark.parametrize("design", DESIGNS_16, ids=design_id)
+@pytest.mark.parametrize("n", [1, 127, 4096, 4097, 65536])
+def test_cuda_kernel_batch_sizes(cuda, n, design):
+    """Ragged batches (the last block holds fewer envs than it has lane
+    groups) and the main path's widths, across the fused autoreset."""
+    cfg = load_config(bale_mode="events", max_steps=6, balesize=24)
+    _kernel_vs_plain(cfg, "external", True, True, n, 8, cuda, seed=n,
+                     design=design)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4097])
+def test_cuda_kernel_default_design(cuda, n):
+    """Through ``step_mono``, the kernel runs the design ``lanes_for``
+    picks, equal to the plain version."""
+    cfg = load_config(bale_mode="events", max_steps=6)
+    _kernel_vs_plain(cfg, "rule", True, True, n, 8, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", DESIGNS_16, ids=design_id)
+def test_cuda_kernel_deep_event_log(cuda, design):
     """A deep event log (E = 904 rows) with presses finishing every step or
     two, on a ragged batch."""
     cfg = load_config(bale_mode="events", max_steps=600, press_time_1=1,
                       press_time_2=2, balesize=16)
     assert cfg.max_press_events > 900
-    st = _kernel_vs_plain(cfg, "rule", True, True, 257, 40, cuda)
+    st = _kernel_vs_plain(cfg, "rule", True, True, 257, 40, cuda,
+                          design=design)
     assert int(st.ev_cnt.max()) > 20
 
 
