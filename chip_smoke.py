@@ -12,9 +12,11 @@ them: policy evaluation and the fused-policy autoreset rollout at 4096 and
 frozen tuned sort agent at the JAX benchmark's width (4096 envs, 64 steps,
 minibatches of 16384, 4 epochs, shuffle blocks of 128); and the trainer's
 sort -> press -> mono flow.  The sort kernels are timed alone beside their
-bounds, and every design of kernels 1 and 2 (a group of lanes per env,
-``sort_cuda.DESIGNS``) is held bitwise against the plain version and timed
-from 4096 to 65536 envs (``--sweep`` runs that phase alone).  The
+bounds, and every design of the three kernels (a group of lanes per env,
+``sort_cuda.DESIGNS`` and ``mvhg_cuda.REDISTRIBUTE_DESIGNS``) is held
+bitwise against its plain version and timed from 4096 to 65536 envs at
+supports 16, 32, 40 and 88, and kernel 3 also at 128 (``--sweep`` runs
+that phase alone).  The
 second-to-last line of standard output is a JSON ``kernels`` record; the
 last line is ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without those lines.  Without CUDA,
@@ -116,21 +118,24 @@ def no_launch(fn, *args, **kw):
     return out
 
 
-def profile_device_us(fn, reps: int, kernel: str) -> float:
+def profile_device_us(fn, reps: int, kernel: str, tries: int = 3) -> float:
     """Profiler device time per launch (us) of the kernel whose name holds
-    ``kernel`` over ``reps`` calls of fn()."""
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    dev_us = [e.device_time_total / e.count
-              for e in prof.key_averages() if kernel in e.key
-              and e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev_us:
-        raise AssertionError(f"the profiler saw no {kernel}")
-    return dev_us[0]
+    ``kernel`` over ``reps`` calls of fn().  A trace that lost the
+    kernel's events (seen once in some hundred traces on the card) is
+    taken again, up to ``tries`` traces in all."""
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        dev_us = [e.device_time_total / e.count
+                  for e in prof.key_averages() if kernel in e.key
+                  and e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev_us:
+            return dev_us[0]
+    raise AssertionError(f"the profiler saw no {kernel} in {tries} traces")
 
 
 def profile_busy(fn):
@@ -192,27 +197,88 @@ def cuda_ms(fn, reps: int) -> float:
 SWEEP_WIDTHS = (4096, 8192, 16384, 32768, 65536)
 
 
-def design_sweep(cfg, dev, gen, widths=SWEEP_WIDTHS) -> dict:
-    """Every design of kernels 1 and 2 that covers the config's support, at
-    the main path's widths (4096 and 65536 envs) and between them, on one
-    state per width: each held bitwise against the plain version, then
-    timed by the profiler (device us per launch, 100 launches) beside the
-    bound and ptxas's registers and stack.  The launches here are no main
-    path's: the counts are restored after.  Returns the rows and what
-    ``lanes_for`` picks."""
-    from marl_sortingenv_tpu_torch.core import fastb as TB
-    from marl_sortingenv_tpu_torch.ops import _build, sort_cuda, step_cuda
-    saved = launch_counts()
-    support = TB._support_for(cfg)
-    designs = sort_cuda.designs_for(support)
-    usage = {**_build.ptxas_usage("step_mono"),
-             **_build.ptxas_usage("sort_material")}
+def _ptxas_lookup():
+    """(kernel name, design) -> (registers, stack bytes) from the ptxas
+    logs of the three libraries."""
+    from marl_sortingenv_tpu_torch.ops import _build
+    usage = {}
+    for src in ("step_mono", "sort_material", "sort_redistribute"):
+        usage.update(_build.ptxas_usage(src))
 
     def ptxas(kname, d):
         tag = f"{len(kname) + 7}{kname}_kernelILi{d[0]}ELi{d[1]}E"
         hits = [v for k, v in usage.items() if tag in k]
         return hits[0] if hits else (None, None)
+    return ptxas
 
+
+def sort_bound(support: int, n: int) -> dict:
+    """Kernel 2's bound: counts, acc and keys in, three (4, N) outputs and
+    the keys out; the threefry blocks and the sampler's operations."""
+    return bound((16 + 16 + 8) * n + (3 * 16 + 8) * n, *sort_ops(support, n))
+
+
+def redistribute_bound(support: int, n: int) -> dict:
+    """Kernel 3's bound: counts, acc and 12 uniforms in, three (N, 4)
+    outputs; the sampler's f32 operations (no threefry)."""
+    return bound((16 + 16 + 48) * n + 3 * 16 * n, 0, sort_ops(support, n)[1])
+
+
+def _sweep_designs(rows, kname, designs, n, support, b, run, check, ptxas):
+    """Hold each design of one kernel against its plain version (``check``
+    raises on a difference), then time it: profiler device us per launch
+    over 100 launches, beside the bound and ptxas's registers and stack."""
+    for d in designs:
+        check(d, run(d))
+        fn = lambda d=d: run(d)
+        fn()
+        us = profile_device_us(fn, 100, f"{kname}_kernel")
+        regs, stack = ptxas(kname, d)
+        rows.append({"kernel": kname, "lanes": d[0], "cap": d[1],
+                     "n_envs": n, "support": support, "device_us": us,
+                     "bound_us": b["bound_ms"] * 1e3,
+                     "bound_by": b["bound_by"], "registers": regs,
+                     "stack_bytes": stack, "bitwise": True})
+        print(f"design sweep: {kname} lanes {d[0]} cap {d[1]} at {n} envs, "
+              f"support {support}: {us:.3f} us per launch (profiler device "
+              f"time), bound {b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), "
+              f"{regs} registers, {stack} bytes stack; == plain, bitwise",
+              flush=True)
+
+
+def _outputs_equal(tag, names, got, want):
+    for nm, x, y in zip(names, got, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"design sweep: {tag}: {nm} differs")
+
+
+def _report_choice(rows, chosen, support):
+    for kname, by_n in chosen.items():
+        for n, d in by_n.items():
+            best = min((r for r in rows if r["kernel"] == kname
+                        and r["n_envs"] == n), key=lambda r: r["device_us"])
+            print(f"design sweep: {kname} at {n} envs, support {support}: "
+                  f"lanes_for picks {d}, the fastest here is "
+                  f"({best['lanes']}, {best['cap']}) at "
+                  f"{best['device_us']:.3f} us", flush=True)
+    return {k: {str(n): list(d) for n, d in v.items()}
+            for k, v in chosen.items()}
+
+
+def design_sweep(cfg, dev, gen, widths=SWEEP_WIDTHS) -> dict:
+    """Every design of the three kernels that covers the config's support,
+    at the main path's widths (4096 and 65536 envs) and between them, on
+    one state per width: each held bitwise against its plain version, then
+    timed by the profiler (device us per launch, 100 launches) beside the
+    bound and ptxas's registers and stack.  Kernel 3 runs on the state's
+    sorting operands with the uniforms the engine draws.  The launches here
+    are no main path's: the counts are restored after.  Returns the rows
+    and what ``lanes_for`` picks."""
+    from marl_sortingenv_tpu_torch.core import fastb as TB
+    from marl_sortingenv_tpu_torch.ops import mvhg_cuda, sort_cuda, step_cuda
+    saved = launch_counts()
+    support = TB._support_for(cfg)
+    ptxas = _ptxas_lookup()
     rows = []
     for n in widths:
         st = TB.reset_batch(cfg, 23, n, device=dev)
@@ -223,64 +289,94 @@ def design_sweep(cfg, dev, gen, widths=SWEEP_WIDTHS) -> dict:
                           dtype=torch.int32).to(dev)
         st_p, o_p = no_launch(step_cuda.step_mono_plain, cfg, st, a,
                               variant="external", masked=True, autoreset=True)
-        n_bytes = step_bytes(cfg, st, a, st_p, o_p, n)
         n_reset = int((st.current_step + 1 >= cfg.max_steps).sum())
-        b1 = bound(n_bytes, *step_ops(cfg, "external", support, n, n_reset))
+        b1 = bound(step_bytes(cfg, st, a, st_p, o_p, n),
+                   *step_ops(cfg, "external", support, n, n_reset))
+
+        def check1(d, out, n=n):
+            states_equal(out[0], st_p, (out[1], o_p),
+                         f"design sweep: step_mono {d} at {n} envs")
+
+        designs12 = sort_cuda.DESIGN_SET.designs_for(support)
+        _sweep_designs(rows, "step_mono", designs12, n,
+                       support, b1, lambda d: step_cuda.step_mono_kernel(
+                           cfg, st, a, variant="external", masked=True,
+                           autoreset=True, design=d), check1, ptxas)
         counts, acc, keys = st.belt_counts, st.acc_belt, st.key
         p2 = no_launch(sort_cuda.sort_material_plain, counts, acc, keys,
                        support)
-        b2 = bound((16 + 16 + 8) * n + (3 * 16 + 8) * n,
-                   *sort_ops(support, n))
-        for d in designs:
-            st_k, o_k = step_cuda.step_mono_kernel(
-                cfg, st, a, variant="external", masked=True, autoreset=True,
-                design=d)
-            states_equal(st_k, st_p, (o_k, o_p),
-                         f"design sweep: step_mono {d} at {n} envs")
-            k2 = sort_cuda.sort_material_kernel(counts, acc, keys, support,
-                                                design=d)
-            for nm, x, y in zip(("leftover", "true", "false", "keys"), k2,
-                                p2):
-                if not torch.equal(x, y):
-                    raise AssertionError(f"design sweep: sort_material {d} "
-                                         f"at {n} envs: {nm} differs")
-            for kname, fn, b in (
-                    ("step_mono", lambda d=d: step_cuda.step_mono_kernel(
-                        cfg, st, a, variant="external", masked=True,
-                        autoreset=True, design=d), b1),
-                    ("sort_material", lambda d=d: sort_cuda.
-                     sort_material_kernel(counts, acc, keys, support,
-                                          design=d), b2)):
-                fn()
-                us = profile_device_us(fn, 100, f"{kname}_kernel")
-                regs, stack = ptxas(kname, d)
-                rows.append({"kernel": kname, "lanes": d[0], "cap": d[1],
-                             "n_envs": n, "device_us": us,
-                             "bound_us": b["bound_ms"] * 1e3,
-                             "bound_by": b["bound_by"], "registers": regs,
-                             "stack_bytes": stack, "bitwise": True})
-                print(f"design sweep: {kname} lanes {d[0]} cap {d[1]} at {n} "
-                      f"envs, support {support}: {us:.3f} us per launch "
-                      f"(profiler device time), bound "
-                      f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}), "
-                      f"{regs} registers, {stack} bytes stack; == plain, "
-                      f"bitwise", flush=True)
+        _sweep_designs(
+            rows, "sort_material", designs12, n, support,
+            sort_bound(support, n), lambda d: sort_cuda.sort_material_kernel(
+                counts, acc, keys, support, design=d),
+            lambda d, out, n=n: _outputs_equal(
+                f"sort_material {d} at {n} envs",
+                ("leftover", "true", "false", "keys"), out, p2), ptxas)
+        us, _ = no_launch(TB._sort_uniforms, keys)
+        c3, a3, u3 = (x.T.contiguous() for x in (counts, acc, us))
+        sweep_redistribute(rows, c3, a3, u3, support, ptxas)
     restore_counts(saved)
     chosen = {"step_mono": {n: step_cuda.lanes_for(support, n)
                             for n in widths},
               "sort_material": {n: sort_cuda.lanes_for(support, n)
-                                for n in widths}}
-    for kname, by_n in chosen.items():
-        for n, d in by_n.items():
-            best = min((r for r in rows if r["kernel"] == kname
-                        and r["n_envs"] == n), key=lambda r: r["device_us"])
-            print(f"design sweep: {kname} at {n} envs, support {support}: "
-                  f"lanes_for picks {d}, the fastest here is "
-                  f"({best['lanes']}, {best['cap']}) at "
-                  f"{best['device_us']:.3f} us", flush=True)
+                                for n in widths},
+              "sort_redistribute": {n: mvhg_cuda.lanes_for(support, n)
+                                    for n in widths}}
     return {"support": support, "rows": rows,
-            "lanes_for": {k: {str(n): list(d) for n, d in v.items()}
-                          for k, v in chosen.items()}}
+            "lanes_for": _report_choice(rows, chosen, support)}
+
+
+def sweep_redistribute(rows, c3, a3, u3, support, ptxas) -> None:
+    """Every design of kernel 3 that covers ``support`` on these operands,
+    bitwise against ``sort_redistribute_plain``, then timed."""
+    from marl_sortingenv_tpu_torch.ops import mvhg_cuda
+    n = c3.shape[0]
+    p3 = no_launch(mvhg_cuda.sort_redistribute_plain, c3, a3, u3, support)
+    _sweep_designs(
+        rows, "sort_redistribute",
+        mvhg_cuda.DESIGN_SET.designs_for(support), n, support,
+        redistribute_bound(support, n),
+        lambda d: mvhg_cuda.sort_redistribute_kernel(c3, a3, u3, support,
+                                                     design=d),
+        lambda d, out: _outputs_equal(
+            f"sort_redistribute {d} at {n} envs",
+            ("leftover", "true", "false"), out, p3), ptxas)
+
+
+def wide_operands(n: int, dev, seed: int = 128):
+    """Kernel 3's operands at the JAX kernel's full support (128), made
+    with numpy from ``seed``: counts in [0, 160) and accuracies in [0.2, 1),
+    so a station's false units (the bound of its draws) reach up to 127."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 160, (n, 4)).astype(np.int32)
+    acc = rng.uniform(0.2, 1.0, (n, 4)).astype(np.float32)
+    uniforms = rng.random((n, 12)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (counts, acc, uniforms))
+
+
+def support_128_sweep(dev, widths=SWEEP_WIDTHS) -> dict:
+    """Kernel 3 alone at support 128, every design that covers it, on
+    operands from ``wide_operands``: bitwise against the plain version,
+    then timed; fails unless some draw's upper end reaches past 104."""
+    from marl_sortingenv_tpu_torch.ops import mvhg_cuda
+    saved = launch_counts()
+    ptxas = _ptxas_lookup()
+    rows = []
+    for n in widths:
+        c3, a3, u3 = wide_operands(n, dev)
+        _, _, false_arr = no_launch(mvhg_cuda.sort_redistribute_plain, c3,
+                                    a3, u3, 128)
+        # station 0's first draw takes K = n = its false units, so hi = that
+        if int(false_arr[:, 0].max()) <= 104:
+            raise AssertionError("support 128 sweep: no draw reaches past "
+                                 "104")
+        sweep_redistribute(rows, c3, a3, u3, 128, ptxas)
+    restore_counts(saved)
+    chosen = {"sort_redistribute": {n: mvhg_cuda.lanes_for(128, n)
+                                    for n in widths}}
+    return {"support": 128, "rows": rows,
+            "lanes_for": _report_choice(rows, chosen, 128)}
 
 
 def step_bytes(cfg, st, a, out_st, out, n: int) -> int:
@@ -298,12 +394,27 @@ def step_bytes(cfg, st, a, out_st, out, n: int) -> int:
 
 
 def sweep_configs():
-    """The configs of the design sweep: the default (support 16) and one at
-    support 32, the cap of the widest group."""
+    """The configs of the design sweep: the default (support 16), support
+    32 (the cap of the narrow groups), support 40 (baseline accuracy 0.2)
+    and support 88 (batches of 250 units at accuracy 0.2), past 64."""
     from marl_sortingenv_tpu_torch.config.config import load_config
+    acc = lambda a: (a, a, a, a)
     return {"default": load_config(bale_mode="events"),
             "support_32": load_config(bale_mode="events",
-                                      baseline_accuracy=(0.5, 0.5, 0.5, 0.5))}
+                                      baseline_accuracy=acc(0.5)),
+            "support_40": load_config(bale_mode="events",
+                                      baseline_accuracy=acc(0.2)),
+            "support_88": load_config(bale_mode="events",
+                                      input_batch_size=250,
+                                      baseline_accuracy=acc(0.2))}
+
+
+def full_sweep(dev, gen) -> dict:
+    """The design sweep of every config, then kernel 3 at support 128."""
+    report = {name: design_sweep(c, dev, gen)
+              for name, c in sweep_configs().items()}
+    report["redistribute_support_128"] = support_128_sweep(dev)
+    return report
 
 
 def sweep_only(dev) -> int:
@@ -312,8 +423,7 @@ def sweep_only(dev) -> int:
     print(gpu_line(), flush=True)
     _build.build_all()
     gen = torch.Generator(device="cpu").manual_seed(31)
-    report = {name: design_sweep(c, dev, gen)
-              for name, c in sweep_configs().items()}
+    report = full_sweep(dev, gen)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "design_sweep.json").write_text(json.dumps(report, indent=1))
@@ -573,14 +683,28 @@ def main() -> int:
 
     # ---- 6. the sort kernels on the card ---------------------------------
     t0 = time.perf_counter()
-    for cname in ("default", "noise_0.05"):
-        c = cfgs[cname]
+    cfgs6 = {"default": cfgs["default"], "noise_0.05": cfgs["noise_0.05"],
+             "support_40": sweep_configs()["support_40"]}
+    designs3 = {}
+    for cname, c in cfgs6.items():
         support = TB._support_for(c)
+        designs3[support] = mvhg_cuda.lanes_for(support, 4096)
         for steps in (5, c.max_steps - 2):
             st = TB.reset_batch(c, 13, 4096, device=dev)
+            # phase 3 holds kernel 1 at support 16; here at support 40 too
+            st_p = st if support != 16 else None
             for _ in range(steps):
-                st, _ = step_cuda.step_mono_kernel(c, st, None, variant="rule",
-                                                   autoreset=True)
+                st, out = step_cuda.step_mono_kernel(
+                    c, st, None, variant="rule", autoreset=True)
+                if st_p is not None:
+                    st_p, out_p = no_launch(step_cuda.step_mono_plain, c,
+                                            st_p, None, variant="rule",
+                                            autoreset=True)
+            if st_p is not None:
+                states_equal(st, st_p, (out, out_p),
+                             f"phase 6: step_mono "
+                             f"{step_cuda.lanes_for(support, 4096)} != plain, "
+                             f"{cname}, after {steps} rule steps")
             counts, acc, keys = st.belt_counts, st.acc_belt, st.key
             k2 = sort_cuda.sort_material_kernel(counts, acc, keys, support)
             p2 = no_launch(sort_cuda.sort_material_plain, counts, acc, keys,
@@ -604,8 +728,10 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"phase 6: kernel 2 (sort_material) == sort_material_plain and "
           f"kernel 3 (sort_redistribute) == redistribute_u, bitwise, and "
-          f"kernel 2 == kernel 3 on the same uniforms: default and noise-0.05 "
-          f"configs, states after 5 and max_steps - 2 rule steps, 4096 envs; "
+          f"kernel 2 == kernel 3 on the same uniforms: default, noise-0.05 "
+          f"and support-40 configs, states after 5 and max_steps - 2 rule "
+          f"steps, 4096 envs, kernel 3 in the designs {designs3} by support; "
+          f"kernel 1 == step_mono_plain on the support-40 steps; "
           f"the plain versions launched no kernel "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -781,24 +907,22 @@ def main() -> int:
                                                        support),
                 lambda: no_launch(sort_cuda.sort_material_plain, counts_,
                                   acc, keys, support),
-                # in: counts, acc, keys; out: 3 x i32[4, N] and the keys
-                (16 + 16 + 8) * n + (3 * 16 + 8) * n,
-                sort_ops(support, n)),
+                sort_bound(support, n), sort_cuda.lanes_for(support, n)),
             "sort_redistribute": (
                 lambda: mvhg_cuda.sort_redistribute_kernel(c3, a3, u3,
                                                            support),
                 lambda: no_launch(mvhg_cuda.sort_redistribute_plain, c3, a3,
                                   u3, support),
-                (16 + 16 + 48) * n + 3 * 16 * n,
-                (0, sort_ops(support, n)[1]))}
-        for kname, (launch, plain, n_bytes, (iops, fops)) in cases_k.items():
+                redistribute_bound(support, n),
+                mvhg_cuda.lanes_for(support, n))}
+        for kname, (launch, plain, b, design) in cases_k.items():
             wall_ms = cuda_ms(launch, 200)
             dev_us = profile_device_us(launch, 100, f"{kname}_kernel")
             plain_ms = cuda_ms(plain, 20)
-            b = bound(n_bytes, iops, fops)
             sk[kname][n] = {"ms": dev_us / 1e3, "wall_ms_per_launch": wall_ms,
-                            "plain_ms": plain_ms, **b}
-            print(f"{kname} kernel at {n} envs: {dev_us:.3f} us per launch "
+                            "plain_ms": plain_ms, "design": list(design), **b}
+            print(f"{kname} kernel at {n} envs, design {design}: "
+                  f"{dev_us:.3f} us per launch "
                   f"(profiler device time; {wall_ms * 1e3:.3f} us with the "
                   f"wrapper), plain {plain_ms:.3f} ms, bound "
                   f"{b['bound_ms'] * 1e3:.3f} us ({b['bound_by']}; bytes "
@@ -807,13 +931,13 @@ def main() -> int:
         del k3_out
     report.update(sk)
 
-    # ---- 11. every design of kernels 1 and 2, in one call ------------------
+    # ---- 11. every design of the three kernels, in one call ---------------
     t0 = time.perf_counter()
-    report["design_sweep"] = {name: design_sweep(c, dev, gen)
-                              for name, c in sweep_configs().items()}
-    print(f"phase 11: design sweep of kernels 1 and 2 at {SWEEP_WIDTHS} "
-          f"envs, supports 16 and 32, each design == plain bitwise "
-          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    report["design_sweep"] = full_sweep(dev, gen)
+    print(f"phase 11: design sweep of kernels 1, 2 and 3 at {SWEEP_WIDTHS} "
+          f"envs, supports 16, 32, 40 and 88, and kernel 3 at 128, each "
+          f"design == plain bitwise ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     report["main_path_launches"] = main_launches
     for kname, v in main_launches.items():
         if v <= 0:
@@ -852,7 +976,7 @@ def main() -> int:
          "launches": main_launches["sort_redistribute"],
          "launched_by": "its own phase (on no main path)",
          "max_abs_err": max_err_k3, "bitwise": True, "n_envs": 4096,
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "design": k3["design"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {

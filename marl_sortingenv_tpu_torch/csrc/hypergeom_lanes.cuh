@@ -19,7 +19,8 @@
 //              bit);
 //   count      __popc of the group's __ballot_sync over the points k < S.
 // Points at or above the support S stay inert in every step, as hg_draw's
-// `if (k < S)` keeps them.  No shuffle sits under a lane-dependent branch,
+// `if (k < S)` keeps them.  The built designs run CAP from 16 to 128 with
+// PPL from 1 to 8 (at (32, 128) a step reads up to 16 lanes below).  No shuffle sits under a lane-dependent branch,
 // and every shuffle names only the group's lanes, so groups of one warp may
 // diverge from each other (an env past the end of the batch skips its step
 // while its neighbours draw).

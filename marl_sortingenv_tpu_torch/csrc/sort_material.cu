@@ -100,7 +100,8 @@ sort_material_kernel(int n, int support, const int* __restrict__ counts,
 
 // The designs, (LANES, CAP) pairs, as in step_mono.cu (mirrored by
 // ops/sort_cuda.py through sort_material_designs()).
-#define SORT_DESIGNS(X) X(1, 16) X(4, 16) X(8, 16) X(16, 16) X(8, 32) X(16, 32) X(32, 32) X(1, 104)
+#define SORT_DESIGNS(X) X(1, 16) X(4, 16) X(8, 16) X(16, 16) X(8, 32) X(16, 32) X(32, 32) \
+    X(8, 64) X(16, 64) X(32, 64) X(16, 128) X(32, 128) X(1, 104)
 
 extern "C" {
 

@@ -676,9 +676,11 @@ step_mono_kernel(const StepConsts c, const StepPtrs p) {
 }
 
 // The designs, (LANES, CAP) pairs: CAP is the support the design covers
-// (104, the engine's cap, is the generic runtime-support path).  Mirrored
-// by ops/step_cuda.py::DESIGNS (checked through step_mono_designs()).
-#define STEP_DESIGNS(X) X(1, 16) X(4, 16) X(8, 16) X(16, 16) X(8, 32) X(16, 32) X(32, 32) X(1, 104)
+// (104, the engine's cap, is the one-lane generic runtime-support path; the
+// groups at caps 64 and 128 cover supports 33-104).  Mirrored by
+// ops/sort_cuda.py::DESIGNS (checked through step_mono_designs()).
+#define STEP_DESIGNS(X) X(1, 16) X(4, 16) X(8, 16) X(16, 16) X(8, 32) X(16, 32) X(32, 32) \
+    X(8, 64) X(16, 64) X(32, 64) X(16, 128) X(32, 128) X(1, 104)
 
 extern "C" {
 

@@ -13,6 +13,8 @@ own copy of the same device code (``csrc/sort_core.cuh``).
 The kernel comes in several designs, ``(lanes, cap)``: a group of
 ``lanes`` lanes of a warp sorts one env, covering supports up to ``cap``
 (``DESIGNS``; ``(1, 104)`` is one thread per env at any support).
+``DesignSet`` holds the checks on a kernel's designs; kernel 3
+(``ops/mvhg_cuda.py``) has its own.
 ``lanes_for(support, n)`` picks the design from the table that the card's
 timings chose (``PERF.md``); a design that is not built, or does not cover
 the support, raises.  Both this kernel and the step kernel
@@ -26,6 +28,7 @@ launches.  Any ``N >= 1`` works (the TPU kernel needed whole 128-lane rows).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,80 +39,96 @@ LAUNCHES = 0
 _I32, _F32 = torch.int32, torch.float32
 
 
-# (lanes, cap) of every design the sources build (STEP_DESIGNS in
-# csrc/step_mono.cu, SORT_DESIGNS in csrc/sort_material.cu): `lanes` lanes
-# per env, supports up to `cap`; (1, 104) is the generic one-lane path, and
-# a one-lane design below it runs at exactly its cap (a compile-time
-# support keeps its sampler's arrays in registers).
+class DesignSet(NamedTuple):
+    """The designs ``(lanes, cap)`` one kernel's library builds: a group of
+    ``lanes`` lanes of a warp per env, supports up to ``cap``.  The one-lane
+    design at ``max_support`` (the largest support the kernel takes) is its
+    generic path; a one-lane design below it runs at exactly its cap (a
+    compile-time support keeps its sampler's arrays in registers)."""
+    designs: tuple
+    max_support: int
+
+    def check_support(self, support: int) -> None:
+        if not 1 <= support <= self.max_support:
+            raise ValueError(f"support {support} is outside the kernels' "
+                             f"range [1, {self.max_support}]")
+
+    def covers(self, design, support: int) -> bool:
+        """Whether ``design`` runs the sampler at ``support``."""
+        lanes, cap = design
+        if lanes == 1 and cap < self.max_support:
+            return support == cap
+        return support <= cap
+
+    def designs_for(self, support: int) -> list:
+        """The built designs that cover ``support``."""
+        return [d for d in self.designs if self.covers(d, support)]
+
+    def check_design(self, design, support: int) -> tuple:
+        """``design`` as a ``(lanes, cap)`` tuple; raises unless it is
+        built and covers ``support``."""
+        self.check_support(support)
+        design = tuple(design)
+        if design not in self.designs:
+            raise ValueError(f"design {design} is not built; the designs "
+                             f"are {self.designs}")
+        if not self.covers(design, support):
+            raise ValueError(f"design {design} covers supports up to "
+                             f"{design[1]}, not {support}"
+                             + (" (a one-lane design runs at its cap alone)"
+                                if design[0] == 1 else ""))
+        return design
+
+    def pick(self, table, support: int, n: int) -> tuple:
+        """The first design of ``table`` -- rows (largest support, smallest
+        n or 0, design) -- whose bounds admit ``(support, n)`` and which
+        covers ``support``."""
+        self.check_support(support)
+        for max_support, min_n, design in table:
+            if (support <= max_support and n >= min_n
+                    and self.covers(design, support)):
+                return design
+        raise ValueError(f"no design for support {support} at n = {n}")
+
+    def bind(self, lib, name: str) -> None:
+        """Raise unless the library ``name`` builds exactly these
+        designs."""
+        fn = getattr(lib, f"{name}_designs")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        want = self.designs
+        buf = (ctypes.c_int * (2 * len(want)))()
+        k = fn(buf, len(want))
+        built = tuple((buf[2 * j], buf[2 * j + 1])
+                      for j in range(min(k, len(want))))
+        if k != len(want) or built != want:
+            raise RuntimeError(f"{name}.cu builds designs {built} (of {k}), "
+                               f"the wrapper expects {want}")
+
+
+# (lanes, cap) of every design the sources of kernels 1 and 2 build
+# (STEP_DESIGNS in csrc/step_mono.cu, SORT_DESIGNS in csrc/sort_material.cu);
+# (1, 104) is the generic one-lane path, the groups at caps 64 and 128 cover
+# supports 33 .. 104.
 DESIGNS = ((1, 16), (4, 16), (8, 16), (16, 16), (8, 32), (16, 32), (32, 32),
-           (1, 104))
+           (8, 64), (16, 64), (32, 64), (16, 128), (32, 128), (1, 104))
+DESIGN_SET = DesignSet(DESIGNS, FB._HG_SUPPORT)
 
 # lanes_for's table: (largest support, smallest n or 0, design), the first
 # entry whose bounds admit (support, n) and whose design covers the support
 # wins.  From the design sweep of chip_smoke.py on an H100 (PERF.md): the
 # fastest design at 4096 .. 65536 envs, switching halfway between measured
-# widths.
+# widths; supports 33-64 take the row measured at support 40, 65-104 the
+# one at 88.
 LANES_TABLE = ((16, 24576, (1, 16)), (16, 0, (16, 16)),
-               (32, 12288, (16, 32)), (32, 0, (32, 32)), (104, 0, (1, 104)))
-
-
-def pick_design(table, support: int, n: int) -> tuple:
-    """The first design of ``table`` whose support and batch bounds admit
-    ``(support, n)`` and which covers ``support``."""
-    check_support(support)
-    for max_support, min_n, design in table:
-        if support <= max_support and n >= min_n and covers(design, support):
-            return design
-    raise ValueError(f"no design for support {support} at n = {n}")
+               (32, 12288, (16, 32)), (32, 0, (32, 32)),
+               (64, 0, (32, 64)), (104, 0, (32, 128)))
 
 
 def lanes_for(support: int, n: int) -> tuple:
     """The sorting-core kernel's design ``(lanes, cap)`` for ``support``
     and ``n`` envs."""
-    return pick_design(LANES_TABLE, support, n)
-
-
-def covers(design, support: int) -> bool:
-    """Whether ``design`` runs the sampler at ``support``."""
-    lanes, cap = design
-    if lanes == 1 and cap < FB._HG_SUPPORT:
-        return support == cap
-    return support <= cap
-
-
-def designs_for(support: int) -> list:
-    """The built designs that cover ``support``."""
-    return [d for d in DESIGNS if covers(d, support)]
-
-
-def check_design(design, support: int) -> tuple:
-    """``design`` as a ``(lanes, cap)`` tuple; raises unless it is built
-    and covers ``support``."""
-    check_support(support)
-    design = tuple(design)
-    if design not in DESIGNS:
-        raise ValueError(f"design {design} is not built; the designs are "
-                         f"{DESIGNS}")
-    if not covers(design, support):
-        raise ValueError(f"design {design} covers supports up to "
-                         f"{design[1]}, not {support}"
-                         + (" (a one-lane design runs at its cap alone)"
-                            if design[0] == 1 else ""))
-    return design
-
-
-def bind_designs(lib, name: str) -> None:
-    """Raise unless the library ``name`` builds exactly ``DESIGNS``."""
-    fn = getattr(lib, f"{name}_designs")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    buf = (ctypes.c_int * (2 * len(DESIGNS)))()
-    k = fn(buf, len(DESIGNS))
-    built = tuple((buf[2 * j], buf[2 * j + 1])
-                  for j in range(min(k, len(DESIGNS))))
-    if k != len(DESIGNS) or built != DESIGNS:
-        raise RuntimeError(f"{name}.cu builds designs {built} (of {k}), "
-                           f"the wrapper expects {DESIGNS}")
+    return DESIGN_SET.pick(LANES_TABLE, support, n)
 
 
 def _library():
@@ -120,7 +139,7 @@ def _library():
         lib.sort_material_launch.argtypes = (
             [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 7
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-        bind_designs(lib, "sort_material")
+        DESIGN_SET.bind(lib, "sort_material")
         lib._sort_material_bound = True
     return lib
 
@@ -136,12 +155,6 @@ def check_operand(name: str, x: torch.Tensor, shape: tuple, dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
-def check_support(support: int) -> None:
-    if not 1 <= support <= FB._HG_SUPPORT:
-        raise ValueError(f"support {support} is outside the kernels' range "
-                         f"[1, {FB._HG_SUPPORT}]")
-
-
 def sort_material_kernel(counts, acc, keys, support: int, design=None):
     """The sorting core of every env through the kernel (CUDA tensors):
     counts i32[4, N], acc f32[4, N], keys i32[N, 2] -> (leftover, true,
@@ -154,7 +167,7 @@ def sort_material_kernel(counts, acc, keys, support: int, design=None):
     n = counts.shape[-1] if counts.dim() == 2 else 0
     if n < 1:
         raise ValueError("the sort kernel needs at least one env")
-    lanes, cap = check_design(
+    lanes, cap = DESIGN_SET.check_design(
         lanes_for(support, n) if design is None else design, support)
     check_operand("counts", counts, (4, n), _I32, dev)
     check_operand("acc", acc, (4, n), _F32, dev)

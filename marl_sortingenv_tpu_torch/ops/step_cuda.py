@@ -25,7 +25,7 @@ import torch
 
 from ..config.config import SimConfig
 from ..core import fastb as FB
-from .sort_cuda import bind_designs, check_design, pick_design
+from .sort_cuda import DESIGN_SET
 
 LAUNCHES = 0
 
@@ -48,19 +48,22 @@ STATE_OUT = ("input_counts", "belt_counts", "sort_counts", "acc_belt",
 EXTRA_OUT = ("obs", "raw_sort", "press_reward", "purity", "action", "term")
 
 
-# lanes_for's table (see sort_cuda.pick_design), from the design sweep of
+# lanes_for's table (see sort_cuda.DesignSet.pick), from the design sweep of
 # chip_smoke.py on an H100 (PERF.md): the fastest design at 4096, 8192,
 # 16384, 32768 and 65536 envs, switching halfway between measured widths.
 # Wide groups win while the batch fits in one wave of the card; past that
 # their registers times lanes cost more waves than the shorter chain saves.
+# Supports 33-64 take the rows measured at support 40, 65-104 those at 88;
+# the generic (1, 104) is the fastest at no width, so no row names it.
 LANES_TABLE = ((16, 12288, (1, 16)), (16, 6144, (8, 16)), (16, 0, (16, 16)),
-               (32, 6144, (8, 32)), (32, 0, (16, 32)), (104, 0, (1, 104)))
+               (32, 6144, (8, 32)), (32, 0, (16, 32)),
+               (64, 6144, (8, 64)), (64, 0, (16, 64)), (104, 0, (16, 128)))
 
 
 def lanes_for(support: int, n: int) -> tuple:
     """The step kernel's design ``(lanes, cap)`` for ``support`` and ``n``
     envs."""
-    return pick_design(LANES_TABLE, support, n)
+    return DESIGN_SET.pick(LANES_TABLE, support, n)
 
 
 class StepConsts(ctypes.Structure):
@@ -137,7 +140,7 @@ def _library():
             ctypes.POINTER(StepConsts), ctypes.POINTER(ctypes.c_void_p),
             ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p]
-        bind_designs(lib, "step_mono")
+        DESIGN_SET.bind(lib, "step_mono")
         if lib.step_mono_consts_size() != ctypes.sizeof(StepConsts):
             raise RuntimeError("StepConsts layout differs from step_mono.cu")
         want = (len(IN_NAMES) + 1) * 100 + len(STATE_OUT) + len(EXTRA_OUT)
@@ -193,7 +196,7 @@ def step_mono_kernel(cfg: SimConfig, st: FB.BState, action, *, variant: str,
     if n < 1:
         raise ValueError("the step kernel needs at least one env")
     support = FB._support_for(cfg)
-    lanes, cap = check_design(
+    lanes, cap = DESIGN_SET.check_design(
         lanes_for(support, n) if design is None else design, support)
     for name in IN_NAMES:
         x, shape, dtype = getattr(st, name), _shape(name, n, E, variant), \

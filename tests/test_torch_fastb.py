@@ -19,6 +19,9 @@ from marl_sortingenv_tpu.core import fastb as FB
 from marl_sortingenv_tpu_torch.config.config import load_config
 from marl_sortingenv_tpu_torch.core import fastb as TB
 
+# one thread: these tensors are tiny, and the suite's workers share the CPU
+torch.set_num_threads(1)
+
 N = 128
 
 # dtypes of the port's state leaves (the BState comments)

@@ -5,8 +5,12 @@ the press-completion config (press times 1/2, balesize 16) where the event
 log takes real writes, and unmasked actions outside the action space.
 Tolerances as in test_torch_fastb."""
 import pytest
+import torch
 
 from test_torch_fastb import run_pair
+
+# one thread: these tensors are tiny, and the suite's workers share the CPU
+torch.set_num_threads(1)
 
 STEPS = 42
 BASE = dict(bale_mode="events", max_steps=36, balesize=24)

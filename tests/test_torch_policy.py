@@ -31,6 +31,9 @@ from marl_sortingenv_tpu_torch.learn import ppo
 from marl_sortingenv_tpu_torch.models import mlp
 from test_torch_fastb import assert_state_equal
 
+# one thread: these tensors are tiny, and the suite's workers share the CPU
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 
 

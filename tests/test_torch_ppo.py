@@ -17,7 +17,8 @@ Tolerances, and why:
   of lr 3e-4.
 
 Learning floors (tests/test_ppo.py:79-161 on the port): the same settings
-and floors as the JAX package's.
+and floors as the JAX package's; the setup is here, the three tests are in
+tests/test_torch_floor_{sort,press,mono}.py.
 
 On the card (marker ``cuda``): one ``make_train_iteration`` per variant at
 a small width runs and launches the expected kernels.
@@ -34,6 +35,9 @@ from marl_sortingenv_tpu_torch.core import threefry as TF
 from marl_sortingenv_tpu_torch.learn import ppo
 from marl_sortingenv_tpu_torch.models import mlp
 from marl_sortingenv_tpu_torch.ops import sort_cuda, step_cuda
+
+# one thread: these tensors are tiny, and the suite's workers share the CPU
+torch.set_num_threads(1)
 
 CFG_KW = dict(max_steps=50, noise_sorting=0.0, balesize=200)
 SORT_NPZ = os.path.join(os.path.dirname(__file__), "..", "artifacts",
@@ -381,7 +385,9 @@ def test_train_iteration_and_run_agree():
 
 
 # ---------------------------------------------------------------------------
-# learning floors (tests/test_ppo.py:79-161 on the port)
+# learning floors (tests/test_ppo.py:79-161 on the port): the setup here,
+# one test per file in tests/test_torch_floor_{sort,press,mono}.py, so that
+# workers that take whole files run the three floors side by side
 # ---------------------------------------------------------------------------
 
 def _floor_setup(name, sort_policy=None):
@@ -407,26 +413,6 @@ def _learn(name, iters, sort_policy=None):
         ts, stats = it(ts)
     assert np.isfinite(float(stats["loss"]))
     return r0, ev(ts.params)
-
-
-def test_sort_agent_learning_floor():
-    r0, r1 = _learn("sort", 20)
-    assert r1 >= 65.0, (r0, r1)
-    assert r1 > r0 + 5.0, (r0, r1)
-
-
-def test_press_agent_learning_floor():
-    """With the frozen tuned sort agent in the env step."""
-    sp = mlp.load_npz(SORT_NPZ, device="cpu").requires_grad_(False)
-    r0, r1 = _learn("press", 15, sort_policy=sp)
-    assert r1 >= -100.0, (r0, r1)
-    assert r1 > r0 + 20.0, (r0, r1)
-
-
-def test_mono_agent_learning_floor():
-    r0, r1 = _learn("mono", 15)
-    assert r1 >= -70.0, (r0, r1)
-    assert r1 > r0 + 20.0, (r0, r1)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,10 @@ On the CPU:
   default and noise-0.05 configs;
 * ``sort_redistribute_plain`` against ``mvhg_pallas.sort_redistribute`` in
   interpret mode, bitwise, as tests/test_pallas_mvhg.py holds the JAX
-  kernel to ``fastb.redistribute_u``;
+  kernel to ``fastb.redistribute_u``, also at the JAX kernel's default
+  support of 128;
+* kernel 3's design table and checks (``mvhg_cuda.lanes_for``, supports 1
+  to 128);
 * the frozen-sort ``fastb.step_press`` against the JAX engine's, with the
   tuned sort agent of ``artifacts/models_tuned``, every leaf bitwise over
   40 autoreset steps at 64 envs, masked and unmasked.  The sorting reward
@@ -18,10 +21,11 @@ On the CPU:
   wrapper, and the frozen-sort press step reaches it once per step.
 
 On the card (marker ``cuda``, skipped without one): each kernel against its
-plain version, bitwise, at 1, 127, 4096, 4097 and 65536 envs and at
-supports 16, 24, 32 and 40 -- kernel 2 in every design that covers the
-support (``sort_cuda.DESIGNS``) -- and the frozen-sort press step through
-kernel 2 against its plain path.  JAX is imported only inside the CPU tests, so the
+plain version, bitwise, at 1, 127, 4096, 4097 and 65536 envs, in every
+design that covers the support -- kernel 2 (``sort_cuda.DESIGNS``) at
+supports 16, 24, 32, 40 and 88, kernel 3 (``mvhg_cuda.REDISTRIBUTE_DESIGNS``)
+at those and at 128 -- and the frozen-sort press step through kernel 2
+against its plain path.  JAX is imported only inside the CPU tests, so the
 card's tests run where JAX is absent:
     python -m pytest tests/test_torch_sort_kernel.py -m cuda --noconftest -o addopts=""
 """
@@ -35,6 +39,9 @@ from marl_sortingenv_tpu_torch.config.config import load_config
 from marl_sortingenv_tpu_torch.core import fastb as TB
 from marl_sortingenv_tpu_torch.models import mlp
 from marl_sortingenv_tpu_torch.ops import mvhg_cuda, sort_cuda, step_cuda
+
+# one thread: these tensors are tiny, and the suite's workers share the CPU
+torch.set_num_threads(1)
 
 SORT_NPZ = os.path.join(os.path.dirname(__file__), "..", "artifacts",
                         "models_tuned", "PPO_Sorting_Tuned_100000.npz")
@@ -133,6 +140,114 @@ def test_sort_redistribute_plain_matches_pallas_on_engine_states(cname):
         assert torch.equal(x, y.T)
 
 
+def _wide_operands(n, seed=128):
+    """Kernel 3's operands at support 128 (as chip_smoke.py makes them):
+    counts in [0, 160), accuracies in [0.2, 1), so a station's false units,
+    the upper end of its draws, reach up to 127."""
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 160, (n, 4)).astype(np.int32),
+            rng.uniform(0.2, 1.0, (n, 4)).astype(np.float32),
+            rng.random((n, 12)).astype(np.float32))
+
+
+def _mvhg_test_operands():
+    """The inputs of tests/test_pallas_mvhg.py::
+    test_kernel_invariants_interpret, from the same numpy seed."""
+    rng = np.random.default_rng(0)
+    n = 16
+    counts = rng.integers(0, 60, (n, 4)).astype(np.int32)
+    acc = np.full((n, 4), 0.75, np.float32)
+    acc[:, 0] = 1.0
+    return counts, acc, rng.random((n, 12)).astype(np.float32)
+
+
+@pytest.mark.parametrize("inputs", ["mvhg_tests", "wide"])
+def test_sort_redistribute_plain_matches_pallas_at_default_support(inputs):
+    """Bitwise at support 128, the JAX kernel's default (its lane width),
+    which the port's kernel 3 takes beyond the engine's cap of 104."""
+    import jax.numpy as jnp
+    from marl_sortingenv_tpu.ops import mvhg_pallas
+
+    assert mvhg_pallas.SUPPORT == mvhg_cuda.SUPPORT == 128
+    counts, acc, uniforms = (_mvhg_test_operands() if inputs == "mvhg_tests"
+                             else _wide_operands(64))
+    got = mvhg_cuda.sort_redistribute_plain(
+        torch.from_numpy(counts), torch.from_numpy(acc),
+        torch.from_numpy(uniforms), 128)
+    ref = mvhg_pallas.sort_redistribute(
+        jnp.asarray(counts), jnp.asarray(acc), jnp.asarray(uniforms),
+        interpret=True)
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    if inputs == "wide":
+        # station 0's first draw has hi = its false units: past the cap 104
+        assert int(got[2][:, 0].max()) > 104
+
+
+def test_redistribute_lanes_for_covers_every_support():
+    """Kernel 3's table gives a built design that covers every support 1 ..
+    128 at any batch size; 0 and 129 raise."""
+    for support in range(1, 129):
+        for n in (1, 4096, 65536):
+            d = mvhg_cuda.lanes_for(support, n)
+            assert d in mvhg_cuda.REDISTRIBUTE_DESIGNS
+            assert mvhg_cuda.DESIGN_SET.covers(d, support)
+            assert d[1] >= support and d[1] % d[0] == 0
+    for support in (0, 129):
+        with pytest.raises(ValueError, match="support"):
+            mvhg_cuda.lanes_for(support, 4096)
+
+
+def test_redistribute_design_checks():
+    """Kernel 3's own design list: a design that is not built, or that does
+    not cover the support, raises; supports 105 .. 128 only at cap 128;
+    support 0 and 129 raise in the checks and in the plain version."""
+    D = mvhg_cuda.DESIGN_SET
+    assert D.check_design([32, 128], 128) == (32, 128)
+    assert D.check_design((32, 128), 105) == (32, 128)
+    assert D.check_design((1, 16), 16) == (1, 16)
+    for design in ((1, 104), (1, 128), (16, 128), (8, 32)):
+        with pytest.raises(ValueError, match="not built"):
+            D.check_design(design, 16)
+    with pytest.raises(ValueError, match="covers supports up to 64"):
+        D.check_design((32, 64), 88)
+    with pytest.raises(ValueError, match="one-lane design runs at its cap"):
+        D.check_design((1, 16), 12)
+    assert D.designs_for(105) == [(32, 128)]
+    assert D.designs_for(12) == [(16, 16), (32, 32), (32, 64), (32, 128)]
+    for support in (0, 129):
+        with pytest.raises(ValueError, match="support"):
+            D.check_design((32, 128), support)
+    z = torch.zeros((8, 4), dtype=torch.int32)
+    for support in (0, 129):
+        with pytest.raises(ValueError, match="support"):
+            mvhg_cuda.sort_redistribute_plain(z, torch.zeros((8, 4)),
+                                              torch.zeros((8, 12)), support)
+
+
+@pytest.mark.parametrize("built", ["same", "fewer", "other"])
+def test_design_set_binds_only_its_own_designs(built):
+    """A library whose ``<name>_designs()`` lists other designs than the
+    wrapper's is refused when it is bound (a stand-in for the built
+    library)."""
+    want = mvhg_cuda.REDISTRIBUTE_DESIGNS
+    pairs = {"same": want, "fewer": want[:-1],
+             "other": ((2, 16),) + want[1:]}[built]
+
+    def designs(buf, room):
+        for j, (lanes, cap) in enumerate(pairs[:room]):
+            buf[2 * j], buf[2 * j + 1] = lanes, cap
+        return len(pairs)
+
+    lib = type("Lib", (), {"sort_redistribute_designs": staticmethod(
+        designs)})()
+    if built == "same":
+        mvhg_cuda.DESIGN_SET.bind(lib, "sort_redistribute")
+    else:
+        with pytest.raises(RuntimeError, match="the wrapper expects"):
+            mvhg_cuda.DESIGN_SET.bind(lib, "sort_redistribute")
+
+
 def test_wrappers_take_plain_versions_on_cpu():
     cfg = load_config(bale_mode="events")
     st = _stepped(cfg, 16, 4)
@@ -158,7 +273,7 @@ def test_sort_kernel_checks_its_arguments():
                                        16, design=(16, 16))
     assert sort_cuda.lanes_for(16, 4096) in sort_cuda.DESIGNS
     with pytest.raises(ValueError, match="covers supports up to 32"):
-        sort_cuda.check_design((32, 32), 40)
+        sort_cuda.DESIGN_SET.check_design((32, 32), 40)
     with pytest.raises(ValueError, match="support"):
         sort_cuda.lanes_for(105, 1)
 
@@ -172,9 +287,13 @@ def test_kernels_refuse_cpu_tensors_and_large_supports():
     with pytest.raises(ValueError, match="CUDA"):
         mvhg_cuda.sort_redistribute_kernel(z4.T, a4.T,
                                            torch.zeros((8, 12)), 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        mvhg_cuda.sort_redistribute_kernel(z4.T, a4.T, torch.zeros((8, 12)),
+                                           128, design=(32, 128))
+    # the JAX kernel's default support, 128, is the largest kernel 3 takes
     with pytest.raises(ValueError, match="support"):
         mvhg_cuda.sort_redistribute_plain(z4.T, a4.T,
-                                          torch.zeros((8, 12)), 128)
+                                          torch.zeros((8, 12)), 129)
 
 
 # ---------------------------------------------------------------------------
@@ -294,17 +413,28 @@ def cuda():
 GENERIC = {"baseline_accuracy": (0.5, 0.5, 0.5, 0.5)}
 # configs by sampler support (fastb._support_for)
 SUPPORT_CFGS = {16: {}, 24: {"noise_sorting": 0.2}, 32: GENERIC,
-                40: {"baseline_accuracy": (0.2, 0.2, 0.2, 0.2)}}
+                40: {"baseline_accuracy": (0.2, 0.2, 0.2, 0.2)},
+                88: {"input_batch_size": 250,
+                     "baseline_accuracy": (0.2, 0.2, 0.2, 0.2)}}
 # every (support, design) pair with the design covering the support; None
 # is the design lanes_for picks, through sort_material
 SORT_CASES = [(s, d) for s in sorted(SUPPORT_CFGS)
-              for d in [None] + sort_cuda.designs_for(s)]
+              for d in [None] + sort_cuda.DESIGN_SET.designs_for(s)]
 
 
 def _case_id(v):
     if isinstance(v, tuple):
         return f"L{v[0]}c{v[1]}"
     return "picked" if v is None else f"s{v}"
+
+
+# kernel 3's pairs: the configs' supports and 128 (numpy operands); the
+# picked designs at 16 and 32 keep the ids "s16" and "generic"
+REDISTRIBUTE_CASES = [
+    pytest.param(s, d, id={16: "s16", 32: "generic"}[s] if d is None
+                 and s in (16, 32) else f"{_case_id(s)}-{_case_id(d)}")
+    for s in sorted(SUPPORT_CFGS) + [128]
+    for d in [None] + mvhg_cuda.DESIGN_SET.designs_for(s)]
 
 
 @pytest.mark.cuda
@@ -331,25 +461,38 @@ def test_cuda_sort_material_matches_plain(cuda, n, support, design):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 127, 4096, 4097, 65536])
-@pytest.mark.parametrize("cfg_kw", [{}, GENERIC], ids=["s16", "generic"])
-def test_cuda_sort_redistribute_matches_plain(cuda, n, cfg_kw):
-    cfg = load_config(bale_mode="events", **cfg_kw)
-    support = TB._support_for(cfg)
-    st = _stepped(cfg, n, 9, device=cuda)
-    counts, acc, keys = _sort_inputs(cfg, st)
-    us, _ = TB._sort_uniforms(keys)
-    c, a, u = counts.T.contiguous(), acc.T.contiguous(), us.T.contiguous()
+@pytest.mark.parametrize("support,design", REDISTRIBUTE_CASES)
+def test_cuda_sort_redistribute_matches_plain(cuda, n, support, design):
+    """Kernel 3 in every design that covers the support (None: the one
+    ``lanes_for`` picks, through ``sort_redistribute``): on a stepped
+    engine state with the uniforms the engine draws, where kernel 2 must
+    give the same split, or at support 128 on numpy operands whose draws
+    reach past the engine's cap."""
+    if support == 128:
+        c, a, u = (torch.from_numpy(x).to(cuda) for x in _wide_operands(n))
+    else:
+        cfg = load_config(bale_mode="events", **SUPPORT_CFGS[support])
+        assert TB._support_for(cfg) == support
+        st = _stepped(cfg, n, 9, device=cuda)
+        counts, acc, keys = _sort_inputs(cfg, st)
+        us, _ = TB._sort_uniforms(keys)
+        c, a, u = (x.T.contiguous() for x in (counts, acc, us))
     before = mvhg_cuda.LAUNCHES
-    got = mvhg_cuda.sort_redistribute(c, a, u, support)
+    if design is None:
+        got = mvhg_cuda.sort_redistribute(c, a, u, support)
+    else:
+        got = mvhg_cuda.sort_redistribute_kernel(c, a, u, support,
+                                                 design=design)
     ref = mvhg_cuda.sort_redistribute_plain(c, a, u, support)
     torch.cuda.synchronize()
     assert mvhg_cuda.LAUNCHES == before + 1
     for x, y in zip(got, ref):
         assert torch.equal(x, y)
-    # and kernel 2 on the same draws gives the same split
-    for x, y in zip(got, sort_cuda.sort_material(counts, acc, keys,
-                                                 support)):
-        assert torch.equal(x, y.T)
+    if support < 128:
+        # kernel 2 on the same draws gives the same split
+        for x, y in zip(got, sort_cuda.sort_material(counts, acc, keys,
+                                                     support)):
+            assert torch.equal(x, y.T)
 
 
 @pytest.mark.cuda

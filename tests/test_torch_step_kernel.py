@@ -9,8 +9,12 @@ the fused autoreset at max_steps=3.
 On the card (marker ``cuda``, skipped without one): the CUDA kernel against
 ``step_mono_plain`` on the same CUDA tensors, bitwise, in every design that
 covers the config's support (``sort_cuda.DESIGNS``), at supports 16, 24,
-32 and 40 and at 1, 127, 4096, 4097 and 65536 envs.  On the CPU also: the
-design table ``lanes_for`` and the wrapper's argument checks.  This module imports
+32, 40 and 88 and at 1, 127, 4096, 4097 and 65536 envs.  Every variant,
+out-of-range actions, the batch sizes, press completion and the deep event
+log run in the designs of caps 16 and 32 and the generic ``(1, 104)`` at
+support 16, and in the groups of caps 64 and 128 at supports 40 and 88.
+On the CPU also: the design table ``lanes_for`` and the wrapper's argument
+checks.  This module imports
 JAX only inside the CPU tests, so the card's tests run where JAX is absent:
     python -m pytest tests/test_torch_step_kernel.py -m cuda --noconftest -o addopts=""
 """
@@ -22,21 +26,31 @@ from marl_sortingenv_tpu_torch.config.config import load_config
 from marl_sortingenv_tpu_torch.core import fastb as TB
 from marl_sortingenv_tpu_torch.ops import sort_cuda, step_cuda
 
+# one thread: these tensors are tiny, and the suite's workers share the CPU
+torch.set_num_threads(1)
+
 N_ACTIONS = {"rule": 22, "external": 22, "sort": 2, "press": 11}
 # configs by sampler support (fastb._support_for)
 SUPPORT_CFGS = {24: {"noise_sorting": 0.2},
                 32: {"baseline_accuracy": (0.5, 0.5, 0.5, 0.5)},
-                40: {"baseline_accuracy": (0.2, 0.2, 0.2, 0.2)}}
+                40: {"baseline_accuracy": (0.2, 0.2, 0.2, 0.2)},
+                88: {"input_batch_size": 250,
+                     "baseline_accuracy": (0.2, 0.2, 0.2, 0.2)}}
 
 
-designs_for = sort_cuda.designs_for
+designs_for = sort_cuda.DESIGN_SET.designs_for
 
 
 def design_id(d):
     return f"L{d[0]}c{d[1]}"
 
 
-DESIGNS_16 = designs_for(16)
+# the designs held at support 16: those of caps 16 and 32 and the generic
+# (1, 104); the groups of caps 64 and 128 are held at supports 40 and 88
+DESIGNS_16 = [d for d in designs_for(16) if d[1] <= 32 or d[0] == 1]
+DESIGN_CASES = ([pytest.param(16, d, id=design_id(d)) for d in DESIGNS_16]
+                + [pytest.param(s, d, id=f"s{s}-{design_id(d)}")
+                   for s in (40, 88) for d in designs_for(s) if d[0] > 1])
 CASES = [("rule", True), ("external", True), ("external", False),
          ("sort", True), ("press", True), ("press", False)]
 
@@ -168,7 +182,7 @@ def test_lanes_for_covers_every_support(table):
             assert (lanes, cap) in sort_cuda.DESIGNS
             assert cap >= support and cap % lanes == 0
             assert lanes * (cap // lanes) >= support
-            assert sort_cuda.covers((lanes, cap), support)
+            assert sort_cuda.DESIGN_SET.covers((lanes, cap), support)
     with pytest.raises(ValueError, match="support"):
         lanes_for(105, 4096)
     with pytest.raises(ValueError, match="support"):
@@ -178,25 +192,30 @@ def test_lanes_for_covers_every_support(table):
 def test_design_checks():
     """A design that is not built, or that does not cover the support,
     raises; so does a support outside the engine's range."""
-    assert sort_cuda.check_design([16, 16], 16) == (16, 16)
-    assert sort_cuda.check_design((1, 104), 104) == (1, 104)
+    D = sort_cuda.DESIGN_SET
+    assert D.check_design([16, 16], 16) == (16, 16)
+    assert D.check_design((1, 104), 104) == (1, 104)
     with pytest.raises(ValueError, match="not built"):
-        sort_cuda.check_design((2, 16), 16)
+        D.check_design((2, 16), 16)
     with pytest.raises(ValueError, match="covers supports up to 16"):
-        sort_cuda.check_design((16, 16), 24)
-    assert sort_cuda.check_design((16, 16), 8) == (16, 16)
+        D.check_design((16, 16), 24)
+    assert D.check_design((16, 16), 8) == (16, 16)
     with pytest.raises(ValueError, match="one-lane design runs at its cap"):
-        sort_cuda.check_design((1, 16), 8)
-    assert sort_cuda.designs_for(40) == [(1, 104)]
-    assert (1, 16) not in sort_cuda.designs_for(24)
+        D.check_design((1, 16), 8)
+    assert D.designs_for(40) == [(8, 64), (16, 64), (32, 64),
+                                 (16, 128), (32, 128), (1, 104)]
+    assert D.designs_for(88) == [(16, 128), (32, 128), (1, 104)]
+    with pytest.raises(ValueError, match="covers supports up to 64"):
+        D.check_design((32, 64), 65)
+    assert (1, 16) not in D.designs_for(24)
     with pytest.raises(ValueError, match="support"):
-        sort_cuda.check_design((1, 104), 105)
+        D.check_design((1, 104), 105)
     table = ((16, 4096, (8, 16)), (16, 0, (16, 16)), (104, 0, (1, 104)))
-    assert sort_cuda.pick_design(table, 16, 4095) == (16, 16)
-    assert sort_cuda.pick_design(table, 16, 4096) == (8, 16)
-    assert sort_cuda.pick_design(table, 17, 1 << 20) == (1, 104)
+    assert D.pick(table, 16, 4095) == (16, 16)
+    assert D.pick(table, 16, 4096) == (8, 16)
+    assert D.pick(table, 17, 1 << 20) == (1, 104)
     with pytest.raises(ValueError, match="no design"):
-        sort_cuda.pick_design(((16, 0, (16, 16)),), 24, 1)
+        D.pick(((16, 0, (16, 16)),), 24, 1)
 
 
 def test_kernel_checks_its_arguments():
@@ -263,32 +282,46 @@ def _kernel_vs_plain(cfg, variant, masked, autoreset, n, steps, dev,
     return st_k
 
 
+def _cfg(support, **kw):
+    """The config ``kw`` at sampler support ``support`` (16: as given;
+    40 and 88: at the accuracies and batch size of ``SUPPORT_CFGS``)."""
+    cfg = load_config(bale_mode="events", **kw, **SUPPORT_CFGS.get(support, {}))
+    assert TB._support_for(cfg) == support
+    return cfg
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", DESIGNS_16, ids=design_id)
+@pytest.mark.parametrize("support,design", DESIGN_CASES)
 @pytest.mark.parametrize("autoreset", [False, True])
 @pytest.mark.parametrize("variant,masked", CASES)
-def test_cuda_kernel_matches_plain(cuda, variant, masked, autoreset, design):
-    cfg = load_config(bale_mode="events", max_steps=20, balesize=24)
+def test_cuda_kernel_matches_plain(cuda, variant, masked, autoreset, support,
+                                   design):
+    cfg = _cfg(support, max_steps=20, balesize=24)
     _kernel_vs_plain(cfg, variant, masked, autoreset, 1000, 24, cuda,
                      design=design)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", DESIGNS_16, ids=design_id)
+@pytest.mark.parametrize("support,design", DESIGN_CASES)
 @pytest.mark.parametrize("variant,masked", CASES[1:])
-def test_cuda_kernel_out_of_range_actions(cuda, variant, masked, design):
+def test_cuda_kernel_out_of_range_actions(cuda, variant, masked, support,
+                                          design):
     """Negative and too-large actions (and the int32 extremes) decode with
     floor division and modulo in the kernel, as in the plain version."""
-    cfg = load_config(bale_mode="events", max_steps=20, balesize=24)
+    cfg = _cfg(support, max_steps=20, balesize=24)
     _kernel_vs_plain(cfg, variant, masked, True, 1000, 24, cuda,
                      action_range=(-40, 40), design=design)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", DESIGNS_16, ids=design_id)
-def test_cuda_kernel_noise_and_press_completion(cuda, design):
+@pytest.mark.parametrize("support,design", DESIGN_CASES)
+def test_cuda_kernel_noise_and_press_completion(cuda, support, design):
+    """Sorting noise 0.05 (which takes support 88's config to 96) and
+    presses that finish within a step or two."""
     cfg = load_config(bale_mode="events", max_steps=24, noise_sorting=0.05,
-                      press_time_1=1, press_time_2=2, balesize=16)
+                      press_time_1=1, press_time_2=2, balesize=16,
+                      **SUPPORT_CFGS.get(support, {}))
+    assert sort_cuda.DESIGN_SET.covers(design, TB._support_for(cfg))
     st = _kernel_vs_plain(cfg, "rule", True, True, 4096, 30, cuda,
                           design=design)
     assert int(st.ev_cnt.max()) > 0
@@ -300,8 +333,9 @@ def test_cuda_kernel_noise_and_press_completion(cuda, design):
     ids=lambda v: design_id(v) if isinstance(v, tuple) else f"s{v}")
 def test_cuda_kernel_generic_support(cuda, support, design):
     """Configs whose sampler support is not 16 (24 at noise 0.2, 32 and 40
-    at lower baseline accuracies) in every design that covers them; 40
-    only in the one-lane generic design."""
+    at lower baseline accuracies, 88 at batches of 250 units) in every
+    design that covers them: 40 in the groups at caps 64 and 128 and the
+    one-lane generic design, 88 in those at cap 128 and the generic one."""
     cfg = load_config(bale_mode="events", max_steps=20,
                       **SUPPORT_CFGS[support])
     assert TB._support_for(cfg) == support
@@ -310,12 +344,12 @@ def test_cuda_kernel_generic_support(cuda, support, design):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", DESIGNS_16, ids=design_id)
+@pytest.mark.parametrize("support,design", DESIGN_CASES)
 @pytest.mark.parametrize("n", [1, 127, 4096, 4097, 65536])
-def test_cuda_kernel_batch_sizes(cuda, n, design):
+def test_cuda_kernel_batch_sizes(cuda, n, support, design):
     """Ragged batches (the last block holds fewer envs than it has lane
     groups) and the main path's widths, across the fused autoreset."""
-    cfg = load_config(bale_mode="events", max_steps=6, balesize=24)
+    cfg = _cfg(support, max_steps=6, balesize=24)
     _kernel_vs_plain(cfg, "external", True, True, n, 8, cuda, seed=n,
                      design=design)
 
@@ -330,12 +364,12 @@ def test_cuda_kernel_default_design(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("design", DESIGNS_16, ids=design_id)
-def test_cuda_kernel_deep_event_log(cuda, design):
+@pytest.mark.parametrize("support,design", DESIGN_CASES)
+def test_cuda_kernel_deep_event_log(cuda, support, design):
     """A deep event log (E = 904 rows) with presses finishing every step or
     two, on a ragged batch."""
-    cfg = load_config(bale_mode="events", max_steps=600, press_time_1=1,
-                      press_time_2=2, balesize=16)
+    cfg = _cfg(support, max_steps=600, press_time_1=1, press_time_2=2,
+               balesize=16)
     assert cfg.max_press_events > 900
     st = _kernel_vs_plain(cfg, "rule", True, True, 257, 40, cuda,
                           design=design)

@@ -9,6 +9,9 @@ import torch
 
 from marl_sortingenv_tpu_torch.core import threefry as TF
 
+# one thread: these tensors are tiny, and the suite's workers share the CPU
+torch.set_num_threads(1)
+
 N_KEYS = 20_000
 
 

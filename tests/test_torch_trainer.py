@@ -24,6 +24,9 @@ from marl_sortingenv_tpu_torch.learn import ppo, trainer
 from marl_sortingenv_tpu_torch.models import mlp
 from marl_sortingenv_tpu_torch.utils import checkpoint as CK
 
+# one thread: these tensors are tiny, and the suite's workers share the CPU
+torch.set_num_threads(1)
+
 CFG = load_config(max_steps=40, noise_sorting=0.0, balesize=200)
 SORT_NPZ = os.path.join(os.path.dirname(__file__), "..", "artifacts",
                         "models_tuned", "PPO_Sorting_Tuned_100000.npz")
