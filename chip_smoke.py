@@ -16,9 +16,17 @@ bounds, and every design of the three kernels (a group of lanes per env,
 ``sort_cuda.DESIGNS`` and ``mvhg_cuda.REDISTRIBUTE_DESIGNS``) is held
 bitwise against its plain version and timed from 4096 to 65536 envs at
 supports 16, 32, 40 and 88, and kernel 3 also at 128 (``--sweep`` runs
-that phase alone).  The
-second-to-last line of standard output is a JSON ``kernels`` record; the
-last line is ``{"ok": true, "device": ...}``.
+that phase alone).  Then the paths that run the eager step with its
+sorting core on kernel 2, at 4096 envs x 200 autoreset steps: full-bale
+mode in every variant (also against events mode through kernel 1 and
+``events_to_full``) and the model and random steps of the engine
+benchmark, each held bitwise to its plain version on the card and to the
+CPU path (run in worker processes meanwhile; a categorical draw may split
+only at a near-tie); the ``fast`` engine against ``fastb`` and a PPO
+iteration on it; and ``eval/harness.run_engine_benchmark`` on both
+engines against the JAX package's means, then timed per policy at 4096
+episodes.  The second-to-last line of standard output is a JSON
+``kernels`` record; the last line is ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without those lines.  Without CUDA,
 or without the port next to this file, it exits non-zero at once.  Details
 go to ``chiprun_out/chip_smoke.json``.
@@ -107,6 +115,16 @@ def restore_counts(counts: dict) -> None:
     mvhg_cuda.LAUNCHES = counts["sort_redistribute"]
 
 
+def add_launches(totals: dict, by_path: dict, path: str,
+                 counts: dict) -> None:
+    """Add one main path's kernel launches to the totals and to the path's
+    own row of ``by_path``."""
+    row = by_path.setdefault(path, dict.fromkeys(totals, 0))
+    for k in totals:
+        row[k] += counts.get(k, 0)
+        totals[k] += counts.get(k, 0)
+
+
 def no_launch(fn, *args, **kw):
     """``fn(*args, **kw)`` (a plain version), failing if it launched any
     of the port's kernels."""
@@ -139,8 +157,9 @@ def profile_device_us(fn, reps: int, kernel: str, tries: int = 3) -> float:
 
 
 def profile_busy(fn):
-    """(fn's result, wall us, device busy share, device us by kernel) of
-    one call of fn() under the profiler."""
+    """(fn's result, wall us, device busy share, device us by kernel, the
+    number of kernels the device ran) of one call of fn() under the
+    profiler."""
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -150,12 +169,14 @@ def profile_busy(fn):
         wall_us = (time.perf_counter() - p0) * 1e6
     # device-side events only: a CPU op's entry repeats the device time of
     # the kernels it launched
-    kernels = sorted(
-        ((e.key, e.self_device_time_total) for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0), key=lambda kv: -kv[1])
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    kernels = sorted(((e.key, e.self_device_time_total) for e in events),
+                     key=lambda kv: -kv[1])
     busy_us = sum(t for _, t in kernels)
-    return out, wall_us, busy_us / wall_us, kernels
+    return (out, wall_us, busy_us / wall_us, kernels,
+            sum(e.count for e in events))
 
 
 def gpu_line() -> str:
@@ -167,16 +188,21 @@ def gpu_line() -> str:
 
 def states_equal(a, b, outs=None, tag=""):
     from marl_sortingenv_tpu_torch.core import fastb as TB
+    def same(x, y):
+        if x.dtype != y.dtype:
+            return False
+        if x.device != y.device:
+            x, y = x.cpu(), y.cpu()
+        return torch.equal(x, y)
     for nm, x, y in zip(TB.BState._fields, a, b):
         if x is None:
             assert y is None, nm
             continue
-        if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+        if not same(x, y):
             raise AssertionError(f"{tag}: state.{nm} differs")
     if outs is not None:
         for nm in TB.BStepOut._fields:
-            x, y = getattr(outs[0], nm), getattr(outs[1], nm)
-            if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+            if not same(getattr(outs[0], nm), getattr(outs[1], nm)):
                 raise AssertionError(f"{tag}: out.{nm} differs")
 
 
@@ -194,7 +220,8 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-SWEEP_WIDTHS = (4096, 8192, 16384, 32768, 65536)
+SWEEP_WIDTHS = (4096, 8192, 16384, 32768, 65536)   # --sweep
+MAIN_SWEEP_WIDTHS = (4096, 65536)                    # the default run
 
 
 def _ptxas_lookup():
@@ -409,11 +436,11 @@ def sweep_configs():
                                       baseline_accuracy=acc(0.2))}
 
 
-def full_sweep(dev, gen) -> dict:
+def full_sweep(dev, gen, widths=SWEEP_WIDTHS) -> dict:
     """The design sweep of every config, then kernel 3 at support 128."""
-    report = {name: design_sweep(c, dev, gen)
+    report = {name: design_sweep(c, dev, gen, widths)
               for name, c in sweep_configs().items()}
-    report["redistribute_support_128"] = support_128_sweep(dev)
+    report["redistribute_support_128"] = support_128_sweep(dev, widths)
     return report
 
 
@@ -428,6 +455,358 @@ def sweep_only(dev) -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "design_sweep.json").write_text(json.dumps(report, indent=1))
     return 0
+
+
+# ---- the slice's paths: full-bale mode, the model and random steps, the
+# ---- fast engine and the engine benchmark -----------------------------------
+
+AGENT_NPZ = {"sort": SORT_NPZ,
+             "press": SORT_NPZ.parent / "PPO_Pressing_Tuned_100000.npz",
+             "mono": SORT_NPZ.parent / "PPO_Monolith_Tuned_100000.npz"}
+
+# The JAX package's engine benchmark on the CPU (JAX 0.9.0, x64 off):
+#   JAX_PLATFORMS=cpu python -c "from marl_sortingenv_tpu.config.config
+#   import load_config; from marl_sortingenv_tpu.eval import harness; ..."
+#   harness.run_engine_benchmark(load_config(), engine="fastb",
+#   num_episodes=10, steps=200, seed0=1, sort_params=..., press_params=...,
+#   mono_params=...) with the three agents of artifacts/models_tuned
+#   (utils.checkpoint.load_model) and masking on; the means per policy.
+BENCH_JAX = {"Random": -79.2068274885416,
+             "Rule-Based": 43.701381826400755,
+             "PPO Sort-Only": -67.09077723324299,
+             "PPO Modular": 53.87255912311375,
+             "PPO Monolith": 83.32351635992526}
+BENCH_TOL = 1e-3
+TIE_ULPS = 4                # a categorical near-tie: top two within 4 ulp
+ARGMAX_RTOL = 1e-5          # an agent's argmax near-tie (the policy's rtol)
+DIGEST_P = 2**31 - 1
+
+
+def _bits64(x):
+    """Each element's bit pattern (at most 32 bits) as an int64 in
+    [0, 2**32)."""
+    if x.dtype == torch.float32:
+        x = x.view(torch.int32)
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+_WEIGHTS = {}
+
+
+def _digest_weights(i: int, rows: int, dev) -> torch.Tensor:
+    key = (i, rows, str(dev))
+    if key not in _WEIGHTS:
+        g = torch.Generator().manual_seed(1009 * i + rows)
+        _WEIGHTS[key] = torch.randint(1, 2**16, (rows, 1), generator=g,
+                                      dtype=torch.int64).to(dev)
+    return _WEIGHTS[key]
+
+
+def digest(tensors) -> torch.Tensor:
+    """int64[N]: one number per env from batch-last tensors, the same on
+    every device for the same bits: each row's bit patterns times a weight
+    (fixed random, < 2**16), summed over the rows and reduced mod 2**31 - 1
+    per tensor, then combined.  Two envs whose tensors differ anywhere get
+    different numbers but with a chance of about 2**-31."""
+    acc = None
+    for i, x in enumerate(tensors):
+        v = _bits64(x.reshape(-1, x.shape[-1]))
+        d = (v * _digest_weights(i, v.shape[0], v.device)).sum(dim=0) \
+            % DIGEST_P
+        acc = d * (i + 1) if acc is None else (acc + d * (i + 1)) % DIGEST_P
+    return acc
+
+
+def state_digest(st) -> torch.Tensor:
+    return digest([x.T if nm == "key" else x
+                   for nm, x in zip(type(st)._fields, st) if x is not None])
+
+
+def out_digest(out) -> torch.Tensor:
+    """The outputs held bitwise between the card and the CPU: obs,
+    terminated, press reward and purity (the action and the two outputs of
+    the sorting reward's tanh are recorded apart)."""
+    return digest([out.obs.T, out.terminated, out.press_reward, out.purity])
+
+
+class TieLog:
+    """Marks, step by step, the envs that drew at a near-tie: a categorical
+    draw (``fastb._vcategorical``) whose two largest perturbed logits lie
+    within TIE_ULPS ulp, or an agent's argmax (``fastb.agent_argmax``) whose
+    two largest logits lie within ARGMAX_RTOL of the larger.  ``install``
+    wraps the two functions of the port's fastb; ``remove`` restores
+    them."""
+
+    def __init__(self):
+        self.cur = None
+
+    def install(self):
+        from marl_sortingenv_tpu_torch.core import fastb as TB
+        from marl_sortingenv_tpu_torch.core import threefry as TF
+        self._real = (TB._vcategorical, TB.agent_argmax)
+        real_cat, real_arg = self._real
+
+        def cat(keys, logits):
+            if self.cur is not None:
+                top = torch.topk(TF.vperturbed(keys, logits), 2, dim=-1).values
+                gap = (top[:, 0].view(torch.int32).to(torch.int64)
+                       - top[:, 1].view(torch.int32).to(torch.int64)).abs()
+                self.cur |= torch.isfinite(top).all(dim=-1) & (gap <= TIE_ULPS)
+            return real_cat(keys, logits)
+
+        def arg(logits):
+            if self.cur is not None and logits.shape[-1] > 1:
+                top = torch.topk(logits, 2, dim=-1).values
+                self.cur |= (top[:, 0] - top[:, 1]) <= ARGMAX_RTOL * top[
+                    :, 0].abs().clamp(min=1.0)
+            return real_arg(logits)
+        TB._vcategorical, TB.agent_argmax = cat, arg
+        return self
+
+    def remove(self):
+        from marl_sortingenv_tpu_torch.core import fastb as TB
+        TB._vcategorical, TB.agent_argmax = self._real
+
+    def begin(self, n, dev):
+        self.cur = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def end(self):
+        cur, self.cur = self.cur, None
+        return cur
+
+
+class Recorder:
+    """Per-step records of a run: action, reward, sort reward, the output
+    digest, the state digest and the near-tie flags, kept on the device
+    until ``stacked``."""
+
+    def __init__(self):
+        self.rows = []
+
+    def add(self, st, out, near):
+        self.rows.append((out.action, out.reward, out.sort_reward,
+                          out_digest(out), state_digest(st), near))
+
+    def stacked(self):
+        return [torch.stack([r[i] for r in self.rows]).cpu()
+                for i in range(6)]
+
+
+def load_agents(names, dev):
+    from marl_sortingenv_tpu_torch.models import mlp
+    return [None if a is None else mlp.load_npz(
+        str(AGENT_NPZ[a]), device=dev).requires_grad_(False) for a in names]
+
+
+def make_step(kind, cfg, masked, agents, dev, plain=False):
+    """The autoreset step ``(st, action) -> (st, out)`` of ``kind`` ('rule',
+    'external', 'sort', 'press', 'model', 'random'); ``plain`` takes the
+    eager bodies that launch no kernel."""
+    from marl_sortingenv_tpu_torch.core import fastb as TB
+    pols = load_agents(agents, dev)
+    if plain:
+        return TB.with_autoreset(cfg, TB.eager_step(kind, masked, *pols))
+    if kind == "model":
+        return TB.with_autoreset(cfg, lambda c, s, a: TB.step_mono_model(
+            c, s, *pols, masked))
+    if kind == "random":
+        return TB.with_autoreset(cfg, lambda c, s, a: TB.step_mono_random(
+            c, s, masked))
+    return TB.mono_autoreset_step(cfg, kind, masked)
+
+
+def cpu_trajectory(job):
+    """A worker process: the job's run on the CPU path, with per-step
+    records.  Returns (tag, records, final state)."""
+    from marl_sortingenv_tpu_torch.config.config import load_config
+    from marl_sortingenv_tpu_torch.core import fastb as TB
+    torch.set_num_threads(1)
+    tag, kind, cfg_kw, masked, agents, seed, n, steps, acts = job
+    cfg = load_config(**cfg_kw)
+    step = make_step(kind, cfg, masked, agents, "cpu")
+    st = TB.reset_batch(cfg, seed, n, device="cpu")
+    log, rec = TieLog().install(), Recorder()
+    for t in range(steps):
+        log.begin(n, "cpu")
+        st, out = step(st, None if acts is None else torch.from_numpy(acts[t]))
+        rec.add(st, out, log.end())
+    return tag, rec.stacked(), st
+
+
+def match_cpu(tag, rec_g, rec_c, st_g, st_c):
+    """Hold the card's run to the CPU's: per step the actions, the output
+    and state digests bitwise and the sorting reward's two outputs to 4 ulp
+    (torch's tanh on the card and on the CPU); an env whose action differs
+    must have drawn at a near-tie on either side, and leaves the comparison
+    from then on.  The final states of the other envs equal, every leaf.
+    Returns (the near-ties as (step, env, action on the card, on the CPU),
+    the envs compared to the end)."""
+    ag, rg, sg, og, dg, ng = rec_g
+    ac, rc, sc, oc, dc, nc = rec_c
+    steps, n = ag.shape
+    alive = torch.ones(n, dtype=torch.bool)
+    ties = []
+    for t in range(steps):
+        split = (ag[t] != ac[t]) & alive
+        for env in split.nonzero().flatten().tolist():
+            if not (ng[t, env] or nc[t, env]):
+                raise AssertionError(
+                    f"{tag}: step {t}, env {env}: action {int(ag[t, env])} "
+                    f"on the card, {int(ac[t, env])} on the CPU, and no "
+                    "near-tie")
+            ties.append((t, env, int(ag[t, env]), int(ac[t, env])))
+        alive &= ~split
+        if not (torch.equal(og[t][alive], oc[t][alive])
+                and torch.equal(dg[t][alive], dc[t][alive])):
+            raise AssertionError(f"{tag}: step {t}: the card's state or "
+                                 "outputs differ from the CPU's")
+        for x, y in ((rg[t], rc[t]), (sg[t], sc[t])):
+            tol = TIE_ULPS * 2.0**-23 * y.abs().clamp(min=1.0)
+            if ((x - y).abs() > tol)[alive].any():
+                raise AssertionError(f"{tag}: step {t}: a reward differs "
+                                     f"from the CPU's by more than 4 ulp")
+    for nm, x, y in zip(type(st_g)._fields, st_g, st_c):
+        if x is None:
+            continue
+        x = x.cpu()
+        same = (torch.equal(x[alive], y[alive]) if nm == "key"
+                else torch.equal(x[..., alive], y[..., alive]))
+        if not same:
+            raise AssertionError(f"{tag}: final state.{nm} differs from the "
+                                 "CPU's")
+    return ties, int(alive.sum())
+
+
+def gpu_run(job, dev, events_check=False):
+    """The job's run on the card: the kernel-2 path and the plain path in
+    lockstep, every leaf and output bitwise, kernel 2 once per step on the
+    kernel path and no launch on the plain one.  With ``events_check`` the
+    same steps also run in events mode (kernel 1 with its fused autoreset):
+    every non-bale leaf and output bitwise, and ``events_to_full`` of its
+    state equal to the full-mode state at steps 100 and ``steps - 2``.
+    Returns (records, final state, launches by kernel)."""
+    from marl_sortingenv_tpu_torch.config.config import load_config
+    from marl_sortingenv_tpu_torch.core import bale_events as TBE
+    from marl_sortingenv_tpu_torch.core import fastb as TB
+    tag, kind, cfg_kw, masked, agents, seed, n, steps, acts = job
+    cfg = load_config(**cfg_kw)
+    step_k = make_step(kind, cfg, masked, agents, dev)
+    step_p = make_step(kind, cfg, masked, agents, dev, plain=True)
+    st_k = st_p = TB.reset_batch(cfg, seed, n, device=dev)
+    if events_check:
+        cfg_e = load_config(**{**cfg_kw, "bale_mode": "events"})
+        step_e = make_step(kind, cfg_e, masked, agents, dev)
+        st_e = TB.reset_batch(cfg_e, seed, n, device=dev)
+    log, rec = TieLog().install(), Recorder()
+    used = {"step_mono": 0, "sort_material": 0, "sort_redistribute": 0}
+    try:
+        for t in range(steps):
+            a = None if acts is None else torch.from_numpy(acts[t]).to(dev)
+            before = launch_counts()
+            log.begin(n, dev)
+            st_k, o_k = step_k(st_k, a)
+            near = log.end()
+            d = {k: v - before[k] for k, v in launch_counts().items()}
+            if d != {"step_mono": 0, "sort_material": 1,
+                     "sort_redistribute": 0}:
+                raise AssertionError(f"{tag} step {t}: launches {d}")
+            used["sort_material"] += 1
+            st_p, o_p = no_launch(step_p, st_p, a)
+            states_equal(st_k, st_p, (o_k, o_p), f"{tag}: kernel-2 path vs "
+                         f"plain, step {t}")
+            rec.add(st_k, o_k, near)
+            if events_check:
+                before = launch_counts()["step_mono"]
+                st_e, o_e = step_e(st_e, a)
+                used["step_mono"] += launch_counts()["step_mono"] - before
+                states_equal(st_e._replace(ev_mat=None, ev_n=None, ev_q=None,
+                                           ev_cnt=None),
+                             st_k._replace(bale_size=None, bale_qual=None,
+                                           bale_cnt=None), (o_e, o_k),
+                             f"{tag}: events mode vs full mode, step {t}")
+                if t in (100, steps - 2):
+                    states_equal(TBE.events_to_full(cfg_e, st_e), st_k,
+                                 tag=f"{tag}: events_to_full at step {t}")
+    finally:
+        log.remove()
+    return rec.stacked(), st_k, used
+
+
+def card_trajectory(job):
+    """A worker process on the card: ``gpu_run`` of the job (events mode
+    alongside for the full-mode kinds).  Returns (tag, records, final state
+    on the CPU, launches by kernel, seconds)."""
+    from marl_sortingenv_tpu_torch.core import fastb as TB
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    rec, st, used = gpu_run(job, torch.device("cuda"),
+                            events_check=job[1] in TB.VARIANTS)
+    st = type(st)(*(None if x is None else x.cpu() for x in st))
+    return job[0], rec, st, used, time.perf_counter() - t0
+
+
+def slice_jobs(n: int, steps: int):
+    """The runs of phases 12 (full-bale mode, default config) and 13
+    (model and random steps, default config): (tag, kind, config
+    overrides, masked, agents, seed, envs, steps, actions or None)."""
+    rng = np.random.default_rng(41)
+    n_act = {"external": 22, "sort": 2, "press": 11}
+    jobs = []
+    for kind in ("rule", "external", "sort", "press"):
+        acts = (None if kind == "rule" else rng.integers(
+            0, n_act[kind], (steps, n)).astype(np.int32))
+        jobs.append((f"full {kind}", kind, {"bale_mode": "full"}, True, (),
+                     43, n, steps, acts))
+    # each agent with and without, each with masking on and off
+    for kind, masked, agents in (
+            ("random", True, ()), ("random", False, ()),
+            ("model", True, (None, None)), ("model", False, ("sort", None)),
+            ("model", False, (None, "press")),
+            ("model", True, ("sort", "press"))):
+        tag = (f"random masked={masked}" if kind == "random" else
+               f"model sort={agents[0] or '-'} press={agents[1] or '-'} "
+               f"masked={masked}")
+        jobs.append((tag, kind, {}, masked, agents, 44, n, steps, None))
+    return jobs
+
+
+def diagnose_bench_miss(cfg, policy, engine, agents, dev):
+    """Where the card's benchmark mean misses the JAX value: run the policy
+    on the card and on the CPU side by side and show that each env whose
+    action splits drew at a near-tie.  Returns the near-ties."""
+    from marl_sortingenv_tpu_torch.eval import harness
+    gens = {}
+    for d in (dev, "cpu"):
+        sp, pp, mp = load_agents(agents, d)
+        gens[d] = harness.policy_steps(cfg, policy, engine, 10, 200, sp, pp,
+                                       mp, True, 1, device=d)
+    log = TieLog().install()
+    alive = torch.ones(10, dtype=torch.bool)
+    ties = []
+    try:
+        for t in range(200):
+            log.begin(10, dev)
+            o_g = next(gens[dev])
+            n_g = log.end().cpu()
+            log.begin(10, "cpu")
+            o_c = next(gens["cpu"])
+            n_c = log.end()
+            split = (o_g.action.cpu() != o_c.action) & alive
+            for env in split.nonzero().flatten().tolist():
+                if not (n_g[env] or n_c[env]):
+                    raise AssertionError(
+                        f"engine benchmark {policy} ({engine}): step {t}, "
+                        f"env {env} splits from the CPU with no near-tie")
+                ties.append((t, env))
+            alive &= ~split
+    finally:
+        log.remove()
+    if not ties:
+        raise AssertionError(f"engine benchmark {policy} ({engine}) misses "
+                             "the JAX mean with no split action")
+    return ties
 
 
 def main() -> int:
@@ -484,10 +863,10 @@ def main() -> int:
     max_err = 0.0
     gen = torch.Generator(device="cpu").manual_seed(31)
     for cname, cfg in cfgs.items():
-        # rule steps by the kernel up to 12 steps before the episode's end,
+        # rule steps by the kernel up to 6 steps before the episode's end,
         # so the A/B starts with a filled event log and crosses a reset
         st0 = TB.reset_batch(cfg, 9, 4096, device=dev)
-        for _ in range(cfg.max_steps - 12):
+        for _ in range(cfg.max_steps - 6):
             st0, _ = step_cuda.step_mono_kernel(cfg, st0, None,
                                                 variant="rule",
                                                 autoreset=True)
@@ -495,7 +874,7 @@ def main() -> int:
             raise AssertionError(f"{cname}: no press completed before the A/B")
         for variant, masked in cases:
             st_k = st_p = st0
-            for t in range(24):
+            for t in range(12):
                 a = torch.randint(0, n_act[variant], (4096,), generator=gen,
                                   dtype=torch.int32).to(dev)
                 a = None if variant == "rule" else a
@@ -511,7 +890,7 @@ def main() -> int:
                     (o_k.reward - o_p.reward).abs().max()))
     torch.cuda.synchronize()
     print(f"phase 3: kernel == plain on the card, bitwise, 3 configs x "
-          f"{len(cases)} variants x 24 steps at 4096 envs, across an "
+          f"{len(cases)} variants x 12 steps at 4096 envs, across an "
           f"episode's end; the plain version launched no kernel "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -597,7 +976,7 @@ def main() -> int:
               f"{rate:.1f} env-steps/s ({ms:.3f} ms), {launches} launches",
               flush=True)
         # where the time goes: device time by kernel over 50 steps
-        (st, obs), prof_wall_us, busy, kernels = profile_busy(
+        (st, obs), prof_wall_us, busy, kernels, _ = profile_busy(
             lambda: rollout(st, obs, 50))
         print(f"  profile of 50 steps at {n} envs: device busy "
               f"{busy:.3f} of {prof_wall_us / 50:.1f} us "
@@ -677,8 +1056,13 @@ def main() -> int:
               f"{b['bytes_ms'] * 1e3:.3f} us, operations "
               f"{b['ops_ms'] * 1e3:.3f} us)", flush=True)
     report["step_mono"] = kern
-    main_launches = {"step_mono": eval_launches + rollout_launches,
-                     "sort_material": 0, "sort_redistribute": 0}
+    main_launches = {"step_mono": 0, "sort_material": 0,
+                     "sort_redistribute": 0}
+    by_path = {}
+    add_launches(main_launches, by_path, "evaluate mono",
+                 {"step_mono": eval_launches})
+    add_launches(main_launches, by_path, "fused-policy rollout",
+                 {"step_mono": rollout_launches})
     max_err_k2 = max_err_k3 = 0
 
     # ---- 6. the sort kernels on the card ---------------------------------
@@ -809,8 +1193,7 @@ def main() -> int:
         if any(per_it[k] != v for k, v in want.items()):
             raise AssertionError(f"{name} training launches per iteration "
                                  f"{per_it}, expected {want}")
-        for k in main_launches:
-            main_launches[k] += counts[k]
+        add_launches(main_launches, by_path, f"train {name}", counts)
         moved = sum(float((p.detach() - q).abs().sum())
                     for p, q in zip(ts.params.parameters(), p0))
         if not moved > 0:
@@ -819,7 +1202,8 @@ def main() -> int:
         upd_ms = float(np.mean([r[1] for r in rows]))
         rate = n_train * pcfg.n_steps / ((roll_ms + upd_ms) / 1e3)
         # where the time goes: one more iteration under the profiler
-        (ts, stats), wall_us, busy, by_kernel = profile_busy(lambda: it(ts))
+        (ts, stats), wall_us, busy, by_kernel, _ = profile_busy(
+            lambda: it(ts))
         report["train"][name] = {
             "n_envs": n_train, "n_steps": pcfg.n_steps,
             "batch_size": pcfg.batch_size, "n_epochs": pcfg.n_epochs,
@@ -880,8 +1264,7 @@ def main() -> int:
     if counts["step_mono"] <= 0 or counts["sort_material"] <= 0:
         raise AssertionError(f"the flow launched {counts}")
     report["flow"]["launches"] = counts
-    for k in main_launches:
-        main_launches[k] += counts[k]
+    add_launches(main_launches, by_path, "train_agent flow", counts)
 
     # ---- 10. the sort kernels alone, beside their bounds -----------------
     support = TB._support_for(cfg)
@@ -899,8 +1282,8 @@ def main() -> int:
             zero_counts()
         k3_out = mvhg_cuda.sort_redistribute(c3, a3, u3, support)
         if n == 4096:
-            main_launches["sort_redistribute"] = launch_counts()[
-                "sort_redistribute"]
+            add_launches(main_launches, by_path, "kernel 3's own phase",
+                         launch_counts())
         cases_k = {
             "sort_material": (
                 lambda: sort_cuda.sort_material_kernel(counts_, acc, keys,
@@ -933,12 +1316,226 @@ def main() -> int:
 
     # ---- 11. every design of the three kernels, in one call ---------------
     t0 = time.perf_counter()
-    report["design_sweep"] = full_sweep(dev, gen)
-    print(f"phase 11: design sweep of kernels 1, 2 and 3 at {SWEEP_WIDTHS} "
+    report["design_sweep"] = full_sweep(dev, gen, MAIN_SWEEP_WIDTHS)
+    print(f"phase 11: design sweep of kernels 1, 2 and 3 at "
+          f"{MAIN_SWEEP_WIDTHS} "
           f"envs, supports 16, 32, 40 and 88, and kernel 3 at 128, each "
           f"design == plain bitwise ({time.perf_counter() - t0:.1f} s)",
           flush=True)
+
+    # ---- 12-15. the slice's paths: full-bale mode, the model and random ----
+    # ---- steps, the fast engine, the engine benchmark -----------------------
+    # the runs of phases 12 and 13 go to spawned worker processes, one
+    # thread each: their CPU path in four, their card side in three, while
+    # this process checks phases 14a and 15a; the timings of 14b and 15b
+    # wait until the workers have ended
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing as mp
+    from marl_sortingenv_tpu_torch.core import fast as FE
+    from marl_sortingenv_tpu_torch.eval import harness
+    n_slice, steps_slice = 4096, 200
+    jobs = slice_jobs(n_slice, steps_slice)
+    slice_report = {"full_mode": {}, "model_random": {}}
+    t0 = time.perf_counter()
+    # the card's side runs in three worker processes too: each run is
+    # host-bound (one Python thread issuing small kernels, the device idle
+    # most of the time), so runs side by side share the card well
+    spawn = mp.get_context("spawn")
+    with ProcessPoolExecutor(4, mp_context=spawn) as cpu_pool, \
+            ProcessPoolExecutor(3, mp_context=spawn) as card_pool:
+        cpu_futures = [cpu_pool.submit(cpu_trajectory, job) for job in jobs]
+        card_futures = [card_pool.submit(card_trajectory, job)
+                        for job in jobs]
+
+        # ---- 14a. the fast engine == fastb in full mode on the card ------
+        t1 = time.perf_counter()
+        cfg_d = load_config()
+        cfg_f = load_config(bale_mode="full")
+        agents = load_agents(("sort", "press", "mono"), dev)
+        st_v = FE.reset_batch(cfg_d, 47, n_slice, device=dev)
+        st_b = TB.reset_batch(cfg_f, 47, n_slice, device=dev)
+        f_v = FE.with_autoreset(cfg_d, lambda c, s, a: (
+            FE.step_mono_external(c, s, a, True)))
+        f_b = TB.mono_autoreset_step(cfg_f, "external", True)
+        before = launch_counts()
+        for t in range(steps_slice):
+            a = torch.randint(0, 22, (n_slice,), generator=gen,
+                              dtype=torch.int32).to(dev)
+            st_v, o_v = f_v(st_v, a)
+            st_b, o_b = f_b(st_b, a)
+            states_equal(TB.from_batch_first(st_v), st_b, (o_v, o_b),
+                         f"fast == fastb full, step {t}")
+        used = {k: v - before[k] for k, v in launch_counts().items()}
+        if used != {"step_mono": 0, "sort_material": 2 * steps_slice,
+                    "sort_redistribute": 0}:
+            raise AssertionError(f"fast vs fastb: launches {used}")
+        add_launches(main_launches, by_path, "fast vs fastb", used)
+        print(f"phase 14: fast engine == fastb in full mode on the card, "
+              f"bitwise in every leaf and output, masked external, "
+              f"{n_slice} envs x {steps_slice} autoreset steps; kernel 2 "
+              f"once per step each, kernel 1 never "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+
+        # ---- 15a. the engine benchmark against the JAX values ------------
+        t1 = time.perf_counter()
+        bench = {}
+        for engine in ("fastb", "fast"):
+            before = launch_counts()
+            res = harness.run_engine_benchmark(
+                cfg_d, engine, 10, 200, *agents, device=dev)
+            used = {k: v - before[k] for k, v in launch_counts().items()}
+            # kernel 1 carries Rule-Based and Monolith on fastb (events
+            # mode); every other step is eager with kernel 2
+            want = ({"step_mono": 400, "sort_material": 600}
+                    if engine == "fastb" else
+                    {"step_mono": 0, "sort_material": 1000})
+            if any(used[k] != v for k, v in want.items()):
+                raise AssertionError(f"engine benchmark ({engine}) launched "
+                                     f"{used}, expected {want}")
+            add_launches(main_launches, by_path,
+                         "engine benchmark, 10 episodes", used)
+            rows = {}
+            for key, ref in BENCH_JAX.items():
+                diff = res[key]["mean"] - ref
+                ties = (diagnose_bench_miss(cfg_d, key, engine,
+                                            ("sort", "press", "mono"), dev)
+                        if abs(diff) > BENCH_TOL else [])
+                rows[key] = {**res[key], "jax_mean": ref, "diff": diff,
+                             "near_ties": ties}
+                print(f"phase 15: engine benchmark {engine} {key}: mean "
+                      f"{res[key]['mean']!r} std {res[key]['std']!r}, JAX "
+                      f"{ref!r}, diff {diff:.3e}"
+                      + (f" > {BENCH_TOL}: near-ties {ties}" if ties else
+                         f" within {BENCH_TOL}"), flush=True)
+            bench[engine] = {"policies": rows, "launches": used}
+        slice_report["bench_10x200"] = bench
+        print(f"phase 15: 10 episodes x 200 steps on both engines "
+              f"({time.perf_counter() - t1:.1f} s)", flush=True)
+
+        # ---- 12/13. the card's runs, then the card against the CPU -------
+        t1 = time.perf_counter()
+        for job, card_fut, cpu_fut in zip(jobs, card_futures, cpu_futures):
+            tag, rec_g, st_g, used, secs = card_fut.result()
+            full = job[1] in TB.VARIANTS
+            add_launches(main_launches, by_path,
+                         "full-bale mode" if full else "model/random steps",
+                         used)
+            print(f"phase {12 if full else 13}: {tag}: kernel-2 path == "
+                  f"plain path, bitwise, {n_slice} envs x {steps_slice} "
+                  f"autoreset steps; kernel 2 once per step, the plain path "
+                  f"no launch"
+                  + ("; events mode (kernel 1) == full mode in every "
+                     "non-bale leaf and output, events_to_full == the "
+                     "full-mode state at steps 100 and 198" if full else "")
+                  + f"; launches {used} ({secs:.1f} s in its worker)",
+                  flush=True)
+            _, rec_c, st_c = cpu_fut.result()
+            ties, kept = match_cpu(tag, rec_g, rec_c, st_g, st_c)
+            part = "full_mode" if tag.startswith("full") else "model_random"
+            slice_report[part][tag] = {"near_ties": ties, "envs_kept": kept}
+            print(f"phase {12 if part == 'full_mode' else 13}: {tag}: card "
+                  f"== CPU path over {steps_slice} steps (state and outputs "
+                  f"bitwise, the tanh'd rewards to 4 ulp): {len(ties)} "
+                  f"near-ties {ties}, {kept} of {n_slice} envs held to the "
+                  f"end", flush=True)
+    print(f"phases 12-15a: {time.perf_counter() - t0:.1f} s (phases 14a "
+          f"and 15a ran beside the workers, then waited "
+          f"{time.perf_counter() - t1:.1f} s for them)", flush=True)
+
+    # ---- 14b. a PPO iteration on the fast engine ---------------------------
+    t1 = time.perf_counter()
+    spec = ppo.spec_for("mono", engine="fast")
+    ts = ppo.init_train_state(cfg_d, pcfg, spec, n_train, seed=0, device=dev)
+    it = ppo.make_train_iteration(cfg_d, pcfg, spec)
+    step_fn = spec.step_fn(None, True)
+    zero_counts()
+    ts, stats = it(ts)                                      # warm-up
+    rows = []
+    for _ in range(3):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        e0.record()
+        ts, trs, last_value = ppo.collect_rollout(cfg_d, pcfg, spec, ts,
+                                                  step_fn, True)
+        e1.record()
+        adv, ret = ppo.compute_gae(pcfg, trs, last_value)
+        ts, stats = ppo.ppo_update(pcfg, ts, trs, adv, ret)
+        e2.record()
+        torch.cuda.synchronize()
+        if not np.isfinite(float(stats["loss"])):
+            raise AssertionError(f"fast-engine training: loss {stats['loss']}")
+        rows.append((e0.elapsed_time(e1), e1.elapsed_time(e2),
+                     float(stats["loss"])))
+    counts = launch_counts()
+    per_it = {k: v / 4 for k, v in counts.items()}
+    if per_it != {"step_mono": 0, "sort_material": 64,
+                  "sort_redistribute": 0}:
+        raise AssertionError(f"fast-engine training launches per iteration "
+                             f"{per_it}")
+    add_launches(main_launches, by_path, "train mono on fast", counts)
+    roll_ms = float(np.mean([r[0] for r in rows]))
+    upd_ms = float(np.mean([r[1] for r in rows]))
+    rate = n_train * pcfg.n_steps / ((roll_ms + upd_ms) / 1e3)
+    slice_report["train_fast_mono"] = {
+        "n_envs": n_train, "rollout_ms": [r[0] for r in rows],
+        "update_ms": [r[1] for r in rows], "loss": [r[2] for r in rows],
+        "samples_per_s": rate, "launches_per_iteration": per_it}
+    print(f"phase 14: train mono on the fast engine at {n_train} envs "
+          f"(n_steps 64, minibatch 16384, 4 epochs, shuffle block 128): "
+          f"{rate:.1f} samples/s; rollout {roll_ms:.3f} ms, update "
+          f"{upd_ms:.3f} ms per iteration (CUDA events, mean of 3 after 1 "
+          f"warm-up); launches per iteration: kernel 2 "
+          f"{per_it['sort_material']:g}, kernel 1 {per_it['step_mono']:g}; "
+          f"losses {[round(r[2], 6) for r in rows]} "
+          f"({time.perf_counter() - t1:.1f} s)", flush=True)
+
+    # ---- 15b. the engine benchmark at 4096 episodes ------------------------
+    t1 = time.perf_counter()
+    n_bench = 4096
+    big = {}
+    for key in harness.POLICY_KEYS:
+        def run(steps, key=key):
+            return harness.policy_totals(cfg_d, key, "fastb", n_bench,
+                                         steps, *agents, device=dev)
+        run(20)                                             # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        w0 = time.perf_counter()
+        totals = run(200)
+        wall = time.perf_counter() - w0
+        used = launch_counts()
+        kernel = ("step_mono" if key in ("Rule-Based", "PPO Monolith")
+                  else "sort_material")
+        if used[kernel] != 200 or sum(used.values()) != 200:
+            raise AssertionError(f"engine benchmark {key} launched {used}")
+        add_launches(main_launches, by_path,
+                     "engine benchmark, 4096 episodes", used)
+        if totals.shape != (n_bench,) or not np.isfinite(totals).all():
+            raise AssertionError(f"engine benchmark {key}: bad totals")
+        # the busy share of the first 20 steps (the profiler's own
+        # bookkeeping of 200 eager steps takes minutes)
+        _, prof_us, busy, by_kernel, n_kern = profile_busy(lambda: run(20))
+        big[key] = {"wall_s": wall, "env_steps_per_s": n_bench * 200 / wall,
+                    "mean": float(totals.mean()), "std": float(totals.std()),
+                    "launches": used, "profiled_steps": 20,
+                    "device_kernels_per_step": n_kern / 20,
+                    "profiled_wall_s": prof_us / 1e6,
+                    "device_busy_share": busy,
+                    "device_ms_by_kernel": {k: t / 1e3
+                                            for k, t in by_kernel[:8]}}
+        print(f"phase 15: engine benchmark fastb {key}, {n_bench} episodes x "
+              f"200 steps: {wall:.3f} s wall, "
+              f"{n_bench * 200 / wall:.1f} env-steps/s, mean "
+              f"{totals.mean():.6f} std {totals.std():.6f}; launches "
+              f"{used}; device busy {busy:.3f} over 20 profiled steps "
+              f"({prof_us / 1e6:.3f} s), {n_kern / 20:.1f} device kernels "
+              f"per step; top device time: "
+              + ", ".join(f"{k[:36]} {t / 1e3:.2f} ms"
+                          for k, t in by_kernel[:3]), flush=True)
+    slice_report["bench_4096x200_fastb"] = big
+    report["slice"] = slice_report
+    print(f"phase 15: {time.perf_counter() - t1:.1f} s", flush=True)
     report["main_path_launches"] = main_launches
+    report["launches_by_path"] = by_path
     for kname, v in main_launches.items():
         if v <= 0:
             raise AssertionError(f"{kname} was never launched on its path")
@@ -949,14 +1546,18 @@ def main() -> int:
 
     k = kern[4096]
     k2, k3 = sk["sort_material"][4096], sk["sort_redistribute"][4096]
-    print(f"main-path launches: {main_launches}; total "
+    print(f"main-path launches: {main_launches}, by path: {by_path}; total "
           f"{report['seconds']:.1f} s", flush=True)
+
+    def paths_of(kname):
+        return {p: c[kname] for p, c in by_path.items() if c[kname]}
     print(gpu)
     print(json.dumps({"kernels": [
         {"name": "step_mono", "route": "cuda",
          "source": "marl_sortingenv_tpu_torch/csrc/step_mono.cu",
          "replaces": "marl_sortingenv_tpu/ops/step_pallas.py:636",
          "launches": main_launches["step_mono"],
+         "launches_by_path": paths_of("step_mono"),
          "max_abs_err": max_err, "bitwise": True, "n_envs": 4096,
          "design": list(step_cuda.lanes_for(support, 4096)),
          "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
@@ -965,6 +1566,7 @@ def main() -> int:
          "source": "marl_sortingenv_tpu_torch/csrc/sort_material.cu",
          "replaces": "marl_sortingenv_tpu/ops/sort_pallas.py:257",
          "launches": main_launches["sort_material"],
+         "launches_by_path": paths_of("sort_material"),
          "max_abs_err": max_err_k2, "bitwise": True, "n_envs": 4096,
          "design": list(sort_cuda.lanes_for(support, 4096)),
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
@@ -974,6 +1576,7 @@ def main() -> int:
          "source": "marl_sortingenv_tpu_torch/csrc/sort_redistribute.cu",
          "replaces": "marl_sortingenv_tpu/ops/mvhg_pallas.py:128",
          "launches": main_launches["sort_redistribute"],
+         "launches_by_path": paths_of("sort_redistribute"),
          "launched_by": "its own phase (on no main path)",
          "max_abs_err": max_err_k3, "bitwise": True, "n_envs": 4096,
          "design": k3["design"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],

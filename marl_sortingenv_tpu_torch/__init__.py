@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of ``marl_sortingenv_tpu``.
 
 Same layout as the JAX package (``config``, ``core``, ``ops``, ``models``,
-``learn``); the JAX package stays the reference the port is tested
-against.  Entry points take an explicit ``device`` that defaults to
+``learn``, ``eval``, ``utils``); the JAX package stays the reference the
+port is tested against.  Entry points take an explicit ``device`` that defaults to
 ``"cuda"`` and raise when CUDA is absent unless the caller asks for the
 CPU.
 """

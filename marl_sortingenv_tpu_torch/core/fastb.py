@@ -1,20 +1,25 @@
-"""Batch-last fast engine, event-bale mode, in PyTorch.
+"""Batch-last fast engine in PyTorch, in both bale modes.
 
 The port of ``marl_sortingenv_tpu.core.fastb``: the same dynamics, the
 same threefry key chain (``core/threefry.py``) and the same float
 association, so that for matching keys the two packages produce
 bit-identical trajectories on the CPU (``tests/test_torch_fastb*.py``).
 Every state leaf keeps the env batch on its LAST axis; ``key`` is
-``int32[N, 2]`` holding the u32 threefry words.
+``int32[N, 2]`` holding the u32 threefry words.  ``cfg.bale_mode`` picks the
+bale representation at reset: "events" ("auto") keeps an (E, N) log of
+finished presses, "full" the (5, MAX, N) bale buffers; a step follows the
+state it is given.
 
-Dispatch follows the state's device.  On CUDA every step without a frozen
-sort agent goes through the hand-written step kernel
-(``ops/step_cuda.py``); the press step with a frozen sort agent runs the
-eager body with its sorting core on the sorting-core kernel
-(``ops/sort_cuda.py``).  On the CPU every step runs the eager bodies below
-and launches nothing.  The eager bodies also run on CUDA as the kernels'
-plain versions (``step_cuda.step_mono_plain``, ``eager_step``), and then
-launch no kernel either.
+Dispatch follows the state's device and bale mode.  On CUDA an events-mode
+step without a policy in it goes through the hand-written step kernel
+(``ops/step_cuda.py``).  Every other step (full-bale mode, which the step
+kernel does not carry, as in JAX; the press step with a frozen sort agent;
+``step_mono_model`` and ``step_mono_random``) runs the eager body with its
+sorting core on the sorting-core kernel (``ops/sort_cuda.py``).  On the CPU
+every step runs the eager bodies below and launches nothing.  The eager
+bodies also run on CUDA as the kernels' plain versions
+(``step_cuda.step_mono_plain``, ``eager_step``), and then launch no kernel
+either.
 
 Float constants enter as device tensors, never as Python scalars in a
 division: PyTorch's CUDA ``a / scalar`` multiplies by the reciprocal,
@@ -42,11 +47,6 @@ _P1 = (0.15, 0.40, 0.10, 0.35)
 _HG_SUPPORT = 104  # worst-case cap (= the JAX engines' cap)
 
 
-def _todo(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 def _support_for(cfg: SimConfig) -> int:
     """Static support bound for one hypergeometric draw.
 
@@ -72,7 +72,8 @@ def _support_for(cfg: SimConfig) -> int:
 
 
 class BState(NamedTuple):
-    """Env state with the env batch on the last axis (events bale mode)."""
+    """Env state with the env batch on the last axis.  In events bale mode
+    ``bale_*`` are None, in full mode ``ev_*``."""
     input_counts: torch.Tensor   # i32[4, N]
     belt_counts: torch.Tensor    # i32[4, N]
     sort_counts: torch.Tensor    # i32[4, N]
@@ -87,9 +88,9 @@ class BState(NamedTuple):
     press_mat: torch.Tensor      # i32[2, N]
     press_n: torch.Tensor        # i32[2, N]
     press_q: torch.Tensor        # f32[2, N]
-    bale_size: Optional[torch.Tensor]  # None (full bale mode not ported)
-    bale_qual: Optional[torch.Tensor]  # None
-    bale_cnt: Optional[torch.Tensor]   # None
+    bale_size: Optional[torch.Tensor]  # i16[5, MAX, N]
+    bale_qual: Optional[torch.Tensor]  # i16[5, MAX, N]
+    bale_cnt: Optional[torch.Tensor]   # i32[5, N]
     last_press_started: torch.Tensor  # bool[N]
     last_press_amount: torch.Tensor   # i32[N]
     gen_pattern_first: torch.Tensor   # i32[N]
@@ -156,12 +157,22 @@ def resolved_bale_mode(cfg: SimConfig) -> str:
 
 
 def _require_events(cfg: SimConfig):
+    """The step kernel carries the event log only, as the JAX kernel does
+    (``step_pallas.supported``)."""
     if resolved_bale_mode(cfg) != "events":
-        _todo("bale_mode='full'", "Queue 1, item 2b")
+        raise ValueError(
+            "the step kernel needs bale_mode='events'; a full-bale-mode "
+            "step runs the eager body (fastb._dispatch)")
 
 
 def _bale_zeros(cfg: SimConfig, n: int, dev) -> dict:
-    _require_events(cfg)
+    if resolved_bale_mode(cfg) == "full":
+        return dict(
+            bale_size=torch.zeros((5, cfg.max_bales, n), dtype=I16,
+                                  device=dev),
+            bale_qual=torch.zeros((5, cfg.max_bales, n), dtype=I16,
+                                  device=dev),
+            bale_cnt=torch.zeros((5, n), dtype=I32, device=dev))
     e = cfg.max_press_events
     # guard the implicit default path only (see the JAX engine): users
     # routed to events by bale_mode="auto" must not overflow the log
@@ -231,12 +242,28 @@ def reset_batch(cfg: SimConfig, key, n: int, device="cuda") -> BState:
     return _reset_from_keys(cfg, TF.split(key[None], n)[0])
 
 
-def from_batch_first(st_bf):
-    _todo("fastb.from_batch_first", "Queue 1, item 2b")
+def from_batch_first(st_bf) -> BState:
+    """A batch-first state (``core/fast.FastEnvState``, batch on axis 0) as
+    a ``BState``: every leaf of two or more axes takes its batch axis last
+    (a view); ``key`` stays ``(N, 2)``."""
+    kw = {name: (x if (x is None or name == "key" or x.dim() <= 1)
+                 else x.movedim(0, -1))
+          for name, x in zip(type(st_bf)._fields, st_bf)}
+    return BState(**kw)
 
 
-def to_batch_first(st):
-    _todo("fastb.to_batch_first", "Queue 1, item 2b")
+def to_batch_first(st: BState):
+    """A full-bale-mode ``BState`` as a ``core/fast.FastEnvState`` (batch on
+    axis 0, views).  An events-mode state raises: convert it with
+    ``core/bale_events.events_to_full`` first."""
+    from . import fast as FE
+    if st.ev_cnt is not None:
+        raise ValueError(
+            "to_batch_first needs a full-bale-mode state; convert with "
+            "core.bale_events.events_to_full(cfg, st) first")
+    kw = {name: (x if (name == "key" or x.dim() <= 1) else x.movedim(-1, 0))
+          for name, x in zip(BState._fields, st) if not name.startswith("ev_")}
+    return FE.FastEnvState(**kw)
 
 
 # ---------------------------------------------------------------------------
@@ -462,18 +489,56 @@ def _row_at(arr, m):
 
 
 def _press_bale(cfg: SimConfig, st: BState, m, n, q, pred) -> BState:
-    """Append one (material, amount, quality%) event per finished press to
-    the (E, N) log (events bale mode)."""
-    _require_events(cfg)
-    lanes = torch.arange(st.ev_n.shape[0], device=m.device)[:, None]
-    hit = (lanes == st.ev_cnt[None, :]) & pred[None, :]
+    """Bale out the finished presses (predicated).  Events mode appends one
+    (material, amount, quality%) event per finished press to the (E, N)
+    log.  Full mode writes the bales into the (5, MAX, N) buffers as masked
+    updates: ``n // bs`` full bales, then a remainder above the threshold
+    (or any remainder of an empty list) as its own bale, else merged into
+    the last bale."""
     q_int = (q * _f32(100.0, q)).to(I16)
-    return st._replace(
-        ev_mat=torch.where(hit, m[None, :].to(I16), st.ev_mat),
-        ev_n=torch.where(hit, n[None, :].to(I16), st.ev_n),
-        ev_q=torch.where(hit, q_int[None, :], st.ev_q),
-        ev_cnt=st.ev_cnt + pred.to(I32),
-    )
+    if st.ev_cnt is not None:
+        lanes = torch.arange(st.ev_n.shape[0], device=m.device)[:, None]
+        hit = (lanes == st.ev_cnt[None, :]) & pred[None, :]
+        return st._replace(
+            ev_mat=torch.where(hit, m[None, :].to(I16), st.ev_mat),
+            ev_n=torch.where(hit, n[None, :].to(I16), st.ev_n),
+            ev_q=torch.where(hit, q_int[None, :], st.ev_q),
+            ev_cnt=st.ev_cnt + pred.to(I32),
+        )
+    bs = cfg.effective_balesize
+    q3 = q_int[None, None, :]
+    full = n // bs                                        # (N,)
+    rem = (n % bs).to(I16)
+    dev = m.device
+    rows = torch.arange(5, device=dev)[:, None, None]
+    lanes = torch.arange(st.bale_size.shape[1], device=dev)[None, :, None]
+    sel = pred[None, None, :] & (rows == m[None, None, :])   # (5, 1, N)
+    cnt_m = _row_at(st.bale_cnt, m)                       # (N,)
+
+    cm = cnt_m[None, None, :]
+    new_mask = sel & (lanes >= cm) & (lanes < cm + full[None, None, :])
+    bale_size = torch.where(new_mask, torch.tensor(bs, dtype=I16, device=dev),
+                            st.bale_size)
+    bale_qual = torch.where(new_mask, q3, st.bale_qual)
+    cnt2 = cnt_m + full                                   # (N,)
+
+    big_rem = rem.to(F32) > _f32(np.float32(bs) * np.float32(
+        cfg.bale_remainder_threshold), q)
+    has_rem = rem > 0
+    own = has_rem & (big_rem | (cnt2 == 0))               # (N,)
+    app = sel & own[None, None, :] & (lanes == cnt2[None, None, :])
+    rem3 = rem[None, None, :]
+    bale_size = torch.where(app, rem3, bale_size)
+    bale_qual = torch.where(app, q3, bale_qual)
+    merge = has_rem & ~big_rem & (cnt2 > 0)
+    mm = sel & merge[None, None, :] & (lanes == (cnt2 - 1)[None, None, :])
+    bale_size = torch.where(mm, bale_size + rem3, bale_size)
+    cnt3 = (cnt2 + own.to(I32)).to(I32)
+
+    bale_cnt = torch.where(pred[None, :] & _onehot_rows(m, 5), cnt3[None, :],
+                           st.bale_cnt)
+    return st._replace(bale_size=bale_size, bale_qual=bale_qual,
+                       bale_cnt=bale_cnt)
 
 
 def _check_press_status(cfg: SimConfig, st: BState) -> BState:
@@ -768,12 +833,37 @@ def _sort_body(cfg: SimConfig, st: BState, action, plain: bool = False):
                         torch.zeros_like(reward), purity)
 
 
+def agent_argmax(logits):
+    """An agent's deterministic action: the first maximum of its logits, as
+    ``jnp.argmax`` (int32[N])."""
+    return torch.argmax(logits, dim=-1).to(I32)
+
+
 def frozen_sort_mode(cfg: SimConfig, st: BState, sort_policy):
-    """The frozen sort agent's action: the argmax (first maximum, as
-    ``jnp.argmax``) of its logits on the sort observation."""
+    """The frozen sort agent's action: the argmax of its logits on the sort
+    observation."""
     with torch.no_grad():
         logits = sort_policy.policy_logits(get_sort_obs(cfg, st))
-    return torch.argmax(logits, dim=-1).to(I32)
+    return agent_argmax(logits)
+
+
+def _sanitize_press(cfg, st, press_id, mat, use_action_masking):
+    """Unmasked invalid presses become no-ops (the timers still tick)."""
+    if not use_action_masking:
+        valid = _validate_press(cfg, st, press_id, mat)
+        press_id = torch.where(valid, press_id, 0)
+        mat = torch.where(valid, mat, 0)
+    return press_id, mat
+
+
+def _mono_tail(cfg, st, a, purity):
+    """A monolith step after its press phase: the rewards, the obs, the
+    step count; ``a`` is the flat action."""
+    sr = _sorting_reward(cfg, st)
+    pr, st = _press_reward(cfg, st)
+    obs = get_mono_obs(cfg, st)
+    st, terminated = _finish(cfg, st)
+    return st, BStepOut(obs, sr + pr, terminated, a.to(I32), sr, pr, purity)
 
 
 def _press_body(cfg: SimConfig, st: BState, action,
@@ -786,11 +876,8 @@ def _press_body(cfg: SimConfig, st: BState, action,
     else:
         sort_mode = _sorting_rules(st)
     purity, st = _apply_sort(cfg, st, sort_mode, plain)
-    press_id, mat = _decode_press(a)
-    if not use_action_masking:
-        valid = _validate_press(cfg, st, press_id, mat)
-        press_id = torch.where(valid, press_id, 0)
-        mat = torch.where(valid, mat, 0)
+    press_id, mat = _sanitize_press(cfg, st, *_decode_press(a),
+                                    use_action_masking)
     st = _press_action_rules(cfg, st, press_id, mat)
     reward, st = _press_reward(cfg, st)
     obs = get_press_obs(cfg, st)
@@ -812,11 +899,7 @@ def _external_body(cfg: SimConfig, st: BState, action,
         st = _select_state(valid, st, dispatched)
     else:
         st = _press_action_rules(cfg, st, press_id, mat)
-    sr = _sorting_reward(cfg, st)
-    pr, st = _press_reward(cfg, st)
-    obs = get_mono_obs(cfg, st)
-    st, terminated = _finish(cfg, st)
-    return st, BStepOut(obs, sr + pr, terminated, a, sr, pr, purity)
+    return _mono_tail(cfg, st, a, purity)
 
 
 def _rule_body(cfg: SimConfig, st: BState, action=None,
@@ -826,43 +909,137 @@ def _rule_body(cfg: SimConfig, st: BState, action=None,
     press_id, mat = _check_container_level(cfg, st)
     purity, st = _apply_sort(cfg, st, sort_mode, plain)
     st = _press_action_rules(cfg, st, press_id, mat)
-    sr = _sorting_reward(cfg, st)
-    pr, st = _press_reward(cfg, st)
-    obs = get_mono_obs(cfg, st)
-    st, terminated = _finish(cfg, st)
     flat = sort_mode * 11 + torch.where(press_id == 0, 0,
                                         (press_id - 1) * 5 + mat + 1)
-    return st, BStepOut(obs, sr + pr, terminated, flat.to(I32), sr, pr,
-                        purity)
+    return _mono_tail(cfg, st, flat, purity)
+
+
+def _vcategorical(keys, logits):
+    """``vmap(jax.random.categorical)``: one draw per env (int32[N])."""
+    return TF.vcategorical(keys, logits).to(I32)
+
+
+def _neg_inf_where_not(mask, logits):
+    return torch.where(mask, logits, torch.full_like(logits, float("-inf")))
+
+
+def _model_body(cfg: SimConfig, st: BState, sort_policy=None,
+                press_policy=None, use_action_masking: bool = True,
+                plain: bool = False):
+    """The modular agents on the monolith: both act on the post-update,
+    pre-sort state.  A missing sort agent draws a uniform 2-way mode, a
+    missing press agent a masked (or uniform 11-way) press, each from its
+    own split of the env's key."""
+    st = _update_environment(cfg, st)
+    n = st.current_step.shape[0]
+    dev = st.current_step.device
+
+    def draw(logits):
+        nonlocal st
+        ks = TF.split(st.key)
+        st = st._replace(key=ks[:, 0].contiguous())
+        return _vcategorical(ks[:, 1].contiguous(), logits)
+
+    if sort_policy is not None:
+        sort_mode = frozen_sort_mode(cfg, st, sort_policy)
+    else:
+        sort_mode = draw(torch.zeros((n, 2), dtype=F32, device=dev))
+    if press_policy is not None:
+        with torch.no_grad():
+            logits = press_policy.policy_logits(get_press_obs(cfg, st))
+        if use_action_masking:
+            logits = _neg_inf_where_not(press_action_masks(cfg, st), logits)
+        press_disc = agent_argmax(logits)
+    elif use_action_masking:
+        mask = press_action_masks(cfg, st)
+        press_disc = draw(_neg_inf_where_not(
+            mask, torch.zeros(mask.shape, dtype=F32, device=dev)))
+    else:
+        press_disc = draw(torch.zeros((n, 11), dtype=F32, device=dev))
+    a_flat = sort_mode * 11 + press_disc
+
+    purity, st = _apply_sort(cfg, st, sort_mode, plain)
+    press_id, mat = _sanitize_press(cfg, st, *_decode_press(press_disc),
+                                    use_action_masking)
+    st = _press_action_rules(cfg, st, press_id, mat)
+    return _mono_tail(cfg, st, a_flat, purity)
+
+
+def _random_body(cfg: SimConfig, st: BState, use_action_masking: bool = True,
+                 plain: bool = False):
+    """A uniform (masked) monolith action from a split of the env's key."""
+    st = _update_environment(cfg, st)
+    n = st.current_step.shape[0]
+    dev = st.current_step.device
+    ks = TF.split(st.key)
+    st = st._replace(key=ks[:, 0].contiguous())
+    if use_action_masking:
+        mask = monolith_action_masks(cfg, st)
+        logits = _neg_inf_where_not(
+            mask, torch.zeros(mask.shape, dtype=F32, device=dev))
+    else:
+        logits = torch.zeros((n, 22), dtype=F32, device=dev)
+    a = _vcategorical(ks[:, 1].contiguous(), logits)
+    purity, st = _apply_sort(cfg, st, a // 11, plain)
+    press_id, mat = _sanitize_press(cfg, st, *_decode_press(a % 11),
+                                    use_action_masking)
+    st = _press_action_rules(cfg, st, press_id, mat)
+    return _mono_tail(cfg, st, a, purity)
 
 
 VARIANTS = ("rule", "external", "sort", "press")
 
 
-def eager_step(variant: str, use_action_masking: bool = True,
-               sort_policy=None):
-    """The eager body of a variant as ``(cfg, st, action) -> (st, out)``;
-    it runs on whatever device the state lies on and launches no kernel:
-    the kernels' plain version.  ``sort_policy`` (press only) is a frozen
-    sort agent (see ``step_press``)."""
-    if sort_policy is not None and variant != "press":
-        raise ValueError("only the press step takes a frozen sort_policy")
+def _body(variant: str, use_action_masking: bool = True, sort_policy=None,
+          press_policy=None, plain: bool = False):
+    """The eager body of a variant as ``(cfg, st, action) -> (st, out)``
+    ('rule', 'model' and 'random' ignore the action)."""
+    if sort_policy is not None and variant not in ("press", "model"):
+        raise ValueError("only the press and model steps take a sort_policy")
+    if press_policy is not None and variant != "model":
+        raise ValueError("only the model step takes a press_policy")
+    m = use_action_masking
     if variant == "rule":
-        return lambda c, s, a=None: _rule_body(c, s, a, plain=True)
+        return lambda c, s, a=None: _rule_body(c, s, a, plain=plain)
     if variant == "external":
-        return lambda c, s, a: _external_body(c, s, a, use_action_masking,
-                                              plain=True)
+        return lambda c, s, a: _external_body(c, s, a, m, plain=plain)
     if variant == "sort":
-        return lambda c, s, a: _sort_body(c, s, a, plain=True)
+        return lambda c, s, a: _sort_body(c, s, a, plain=plain)
     if variant == "press":
-        return lambda c, s, a: _press_body(c, s, a, use_action_masking,
-                                           sort_policy, plain=True)
+        return lambda c, s, a: _press_body(c, s, a, m, sort_policy,
+                                           plain=plain)
+    if variant == "model":
+        return lambda c, s, a=None: _model_body(c, s, sort_policy,
+                                                press_policy, m, plain=plain)
+    if variant == "random":
+        return lambda c, s, a=None: _random_body(c, s, m, plain=plain)
     raise ValueError(f"unknown variant {variant!r}")
 
 
+def eager_step(variant: str, use_action_masking: bool = True,
+               sort_policy=None, press_policy=None):
+    """The eager body of a variant ('rule', 'external', 'sort', 'press',
+    'model', 'random') as ``(cfg, st, action) -> (st, out)``; it runs on
+    whatever device the state lies on and launches no kernel: the kernels'
+    plain version.  ``sort_policy`` (press and model) and ``press_policy``
+    (model) are agents, as ``step_press`` and ``step_mono_model`` take
+    them."""
+    return _body(variant, use_action_masking, sort_policy, press_policy,
+                 plain=True)
+
+
 def _dispatch(cfg, st, action, variant, masked=True, autoreset=False):
-    """The step kernel's wrapper launches the CUDA kernel for a state on
-    CUDA and runs the eager body for a state on the CPU."""
+    """An events-mode state goes to the step kernel's wrapper, which
+    launches the CUDA kernel for a state on CUDA and runs the eager body for
+    a state on the CPU.  A full-bale-mode state runs the eager body on its
+    device (its sorting core on the sorting-core kernel on CUDA), wrapped in
+    ``with_autoreset`` when ``autoreset`` is set: the JAX engine's choice,
+    whose step kernel needs events mode."""
+    if st.ev_cnt is None:
+        body = _body(variant, masked)
+        if autoreset:
+            return with_autoreset(cfg, body)(st, action)
+        return body(cfg, st, action)
     from ..ops import step_cuda
     return step_cuda.step_mono(cfg, st, action, variant=variant,
                                masked=masked, autoreset=autoreset)
@@ -875,14 +1052,14 @@ def step_sort(cfg: SimConfig, st: BState, action):
 def step_press(cfg: SimConfig, st: BState, action, sort_policy=None,
                use_action_masking: bool = True):
     """The press step.  Without ``sort_policy`` the sorter follows its
-    rules and the step is one launch of the step kernel on CUDA.  With
-    one, ``sort_policy`` is a frozen sort agent, an ``ActorCritic`` whose
-    parameters take no gradient (the port's counterpart of the JAX
-    package's ``(apply_fn, params)`` pair): the argmax of its logits on the
-    post-update sort observation sets the sorter, and the eager step runs
-    with its sorting core on the sorting-core kernel (CUDA) or the plain
-    core (CPU).  That step is not fused with the autoreset: the learner
-    wraps it in ``with_autoreset``."""
+    rules and, in events mode, the step is one launch of the step kernel on
+    CUDA.  With one, ``sort_policy`` is a frozen sort agent, an
+    ``ActorCritic`` whose parameters take no gradient (the port's
+    counterpart of the JAX package's ``(apply_fn, params)`` pair): the
+    argmax of its logits on the post-update sort observation sets the
+    sorter, and the eager step runs with its sorting core on the
+    sorting-core kernel (CUDA) or the plain core (CPU).  That step is not
+    fused with the autoreset: the learner wraps it in ``with_autoreset``."""
     if sort_policy is not None:
         return _press_body(cfg, st, action, use_action_masking, sort_policy)
     return _dispatch(cfg, st, action, "press", use_action_masking)
@@ -899,12 +1076,20 @@ def step_mono_rule(cfg: SimConfig, st: BState, action=None):
 
 def step_mono_model(cfg: SimConfig, st: BState, sort_policy=None,
                     press_policy=None, use_action_masking: bool = True):
-    _todo("fastb.step_mono_model", "Queue 1, item 4")
+    """The monolith driven by the modular agents (``ActorCritic`` modules,
+    or None for the random fallbacks of ``_model_body``): the engine
+    benchmark's Sort-Only and Modular policies.  The eager step, with its
+    sorting core on the sorting-core kernel for a state on CUDA."""
+    return _model_body(cfg, st, sort_policy, press_policy,
+                       use_action_masking)
 
 
 def step_mono_random(cfg: SimConfig, st: BState,
                      use_action_masking: bool = True):
-    _todo("fastb.step_mono_random", "Queue 1, item 4")
+    """The monolith driven by uniform (masked) random actions; unmasked
+    invalid presses become no-ops.  The eager step, with its sorting core
+    on the sorting-core kernel for a state on CUDA."""
+    return _random_body(cfg, st, use_action_masking)
 
 
 def autoreset(cfg: SimConfig, st: BState) -> BState:
@@ -924,8 +1109,9 @@ def mono_autoreset_step(cfg: SimConfig, variant: str,
                         use_action_masking: bool = True):
     """Autoreset rollout step ``(st, action) -> (st, out)`` for any
     kernel-covered variant ('rule' | 'external' | 'sort' | 'press').  On
-    CUDA the terminated-env reset is fused into the step kernel; on the
-    CPU it is ``with_autoreset`` over the eager step, with the same bits."""
+    CUDA an events-mode state's terminated-env reset is fused into the step
+    kernel; on the CPU, and in full-bale mode, it is ``with_autoreset`` over
+    the eager step, with the same bits."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
 

@@ -2,8 +2,10 @@
 
 The counterpart of the batched RNG of ``marl_sortingenv_tpu.core.fastb``
 (``_vsplit`` / ``_vuniform`` / ``_vuniform4`` / ``_vrandint4`` /
-``_vbernoulli``) and of the JAX kernels' ``_threefry`` /
-``_bits_to_unit_f32``.  For the same keys it draws the same bits:
+``_vbernoulli`` / ``_vcategorical``), of the learner's one-key draws
+(``categorical``, ``permutation``, ``normal``) and of the JAX kernels'
+``_threefry`` / ``_bits_to_unit_f32``.  For the same keys it draws the
+same bits:
 
 * ``split(key, num)`` row i is the block with 64-bit counter (0, i), both
   output words kept as the new key;
@@ -174,22 +176,57 @@ def random_bits(key, shape, device="cpu") -> torch.Tensor:
     return (o0 ^ o1).reshape(shape)
 
 
-def categorical(key, logits: torch.Tensor) -> torch.Tensor:
-    """``jax.random.categorical(key, logits, axis=-1)`` in JAX's default
-    ``'low'`` gumbel mode: ``argmax(logits + g)`` with ``g = -log(-log(u))``
-    and ``u = max(tiny, u01 * (1 - tiny) + tiny)`` (the mul-add rounded
-    once, as XLA fuses it).  Returns int64 indices.  ``torch.log`` and XLA's
-    ``log`` may differ in the last bit, so the draw agrees with JAX on the
-    chosen index except where two perturbed logits tie to an ulp."""
+def _perturbed(b: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``gumbel + logits`` from the u32 words ``b`` (int64, logits' shape),
+    ``jax.random.gumbel``'s default ``'low'`` mode: ``g = -log(-log(u))``
+    with ``u = max(tiny, u01 * (1 - tiny) + tiny)`` (the mul-add rounded
+    once, as XLA fuses it)."""
     dev = logits.device
-    u01 = bits_to_unit(random_bits(key, logits.shape, dev))
+    u01 = bits_to_unit(b)
     lo = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float32,
                       device=dev)
     span = torch.tensor(1.0, dtype=torch.float32, device=dev) - lo
     u = torch.maximum(lo, fma_f32(u01, span.expand_as(u01),
                                   lo.expand_as(u01)))
-    gumbel = -torch.log(-torch.log(u))
-    return torch.argmax(gumbel + logits.float(), dim=-1)
+    return -torch.log(-torch.log(u)) + logits.float()
+
+
+def categorical(key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` of one key:
+    ``argmax(gumbel + logits)``.  Returns int64 indices.  ``torch.log`` and
+    XLA's ``log`` may differ in the last bit, so the draw agrees with JAX on
+    the chosen index except where two perturbed logits tie to an ulp."""
+    b = random_bits(key, logits.shape, logits.device)
+    return torch.argmax(_perturbed(b, logits), dim=-1)
+
+
+def vperturbed(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """The perturbed logits ``gumbel + logits`` (f32[N, A]) that
+    ``vcategorical`` takes the argmax of."""
+    return _perturbed(bits(keys, logits.shape[-1]), logits)
+
+
+def vcategorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``vmap(jax.random.categorical)(keys, logits)``: one draw per key from
+    its row of ``logits[N, A]``; the gumbel words of key i are
+    ``bits(keys, A)[i]``.  Returns int64[N].  Agrees with JAX on the index
+    except at near-ties, as ``categorical``."""
+    return torch.argmax(vperturbed(keys, logits), dim=-1)
+
+
+def normal(key, shape, device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)`` of one key: a uniform on
+    ``[nextafter(-1, 0), 1)`` (``u01 * span + lo``, the mul-add rounded
+    once, then ``max(lo, .)``), mapped by ``sqrt(2) * erfinv``.
+    ``torch.erfinv`` and XLA's ``erf_inv`` round differently, so the values
+    agree with JAX to a few ulp, not bitwise."""
+    u01 = bits_to_unit(random_bits(key, shape, device))
+    lo = torch.tensor(np.nextafter(np.float32(-1.0), np.float32(0.0)),
+                      dtype=torch.float32, device=device)
+    span = torch.tensor(1.0, dtype=torch.float32, device=device) - lo
+    u = torch.maximum(lo, fma_f32(u01, span.expand_as(u01),
+                                  lo.expand_as(u01)))
+    return torch.erfinv(u) * np.float32(np.sqrt(2))
 
 
 def permutation(key, n: int, device="cpu") -> torch.Tensor:

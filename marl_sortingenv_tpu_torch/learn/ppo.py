@@ -1,4 +1,5 @@
-"""On-device (Maskable) PPO learner on the batch-last engine: the port of
+"""On-device (Maskable) PPO learner on the fast engines (the batch-last
+``fastb`` and its batch-first view ``fast``): the port of
 ``marl_sortingenv_tpu.learn.ppo`` (SB3's ``PPO`` / ``MaskablePPO``).
 
 The same algorithm and the same random streams as the JAX learner: the
@@ -33,6 +34,7 @@ import torch
 
 from .. import resolve_device
 from ..config.config import SimConfig
+from ..core import fast as FE
 from ..core import fastb as FB
 from ..core import threefry as TF
 from ..models import mlp
@@ -40,7 +42,7 @@ from ..models import mlp
 F32, I32 = torch.float32, torch.int32
 
 
-def _todo(what: str, item: str = "Queue 1, item 10"):
+def _todo(what: str, item: str = "Queue 1, item 9"):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md {item})")
 
@@ -76,8 +78,9 @@ class PPOConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VariantSpec:
-    """Learner-facing description of one env variant.  The port has the
-    batch-last ``engine='fastb'`` only."""
+    """Learner-facing description of one env variant on the batch-last
+    ``engine='fastb'`` or the batch-first ``engine='fast'`` (its view,
+    ``core/fast.py``).  The parity engine is not ported yet."""
     name: str                 # 'sort' | 'press' | 'mono'
     obs_dim: int
     n_actions: int
@@ -85,49 +88,54 @@ class VariantSpec:
     engine: str = "fastb"
 
     def __post_init__(self):
-        if self.engine != "fastb":
-            _todo(f"engine={self.engine!r}", "Queue 1, items 6-7")
+        if self.engine not in ("fast", "fastb"):
+            _todo(f"engine={self.engine!r}", "Queue 1, item 5")
 
-    def mask_fn(self, cfg: SimConfig, st: FB.BState):
+    def _mod(self):
+        return FE if self.engine == "fast" else FB
+
+    def mask_fn(self, cfg: SimConfig, st):
         if self.name == "press":
-            return FB.press_action_masks(cfg, st)
+            return self._mod().press_action_masks(cfg, st)
         if self.name == "mono":
-            return FB.monolith_action_masks(cfg, st)
+            return self._mod().monolith_action_masks(cfg, st)
         return torch.ones((st.current_step.shape[0], self.n_actions),
                           dtype=torch.bool, device=st.current_step.device)
 
-    def obs_fn(self, cfg: SimConfig, st: FB.BState):
+    def obs_fn(self, cfg: SimConfig, st):
+        mod = self._mod()
         if self.name == "sort":
-            return FB.get_sort_obs(cfg, st)
+            return mod.get_sort_obs(cfg, st)
         if self.name == "press":
-            return FB.get_press_obs(cfg, st)
-        return FB.get_mono_obs(cfg, st)
+            return mod.get_press_obs(cfg, st)
+        return mod.get_mono_obs(cfg, st)
 
     def step_fn(self, sort_policy=None, use_action_masking=True):
         """``(cfg, st, action) -> (st, out)``.  ``sort_policy`` (press only)
         is a frozen sort agent, an ``ActorCritic`` (see
         ``fastb.step_press``)."""
+        mod = self._mod()
         if self.name == "sort":
-            return FB.step_sort
+            return mod.step_sort
         if self.name == "press":
-            return lambda cfg, st, a: FB.step_press(
+            return lambda cfg, st, a: mod.step_press(
                 cfg, st, a, sort_policy, use_action_masking)
 
         def f(cfg, st, a):
-            return FB.step_mono_external(cfg, st, a, use_action_masking)
+            return mod.step_mono_external(cfg, st, a, use_action_masking)
         # the tag lets batched_autoreset_step prove that the fused-autoreset
         # step it substitutes is this very step
         f._mono_step = ("external", use_action_masking)
         return f
 
     def wrap_autoreset(self, cfg: SimConfig, step_fn):
-        return FB.with_autoreset(cfg, step_fn)
+        return self._mod().with_autoreset(cfg, step_fn)
 
     def reset_batch(self, cfg: SimConfig, n_envs: int, seed0: int = 0,
                     device="cuda"):
-        return FB.reset_batch(cfg, seed0, n_envs, device=device)
+        return self._mod().reset_batch(cfg, seed0, n_envs, device=device)
 
-    # the fastb functions are natively batched: obs [N, d], masks [N, A]
+    # both engines' functions are batched: obs [N, d], masks [N, A]
 
     def batched_obs(self, cfg: SimConfig):
         return lambda st: self.obs_fn(cfg, st)
@@ -140,11 +148,12 @@ class VariantSpec:
 
     def batched_autoreset_step(self, cfg: SimConfig, step_fn,
                                use_action_masking: bool = True):
-        """The autoreset step of the rollout.  A tagged mono step becomes
-        the step kernel with the reset fused in (bitwise the same as the
-        generic wrapper); every other step takes ``with_autoreset``."""
+        """The autoreset step of the rollout.  On ``fastb`` a tagged mono
+        step becomes ``mono_autoreset_step``, whose step kernel fuses the
+        reset in (bitwise the same as the generic wrapper); every other step
+        takes ``with_autoreset``."""
         tag = getattr(step_fn, "_mono_step", None)
-        if self.name == "mono" and tag is not None:
+        if self.engine == "fastb" and self.name == "mono" and tag is not None:
             variant, masked = tag
             if masked != use_action_masking:
                 raise ValueError(
@@ -185,7 +194,7 @@ class AdamState(NamedTuple):
 class TrainState(NamedTuple):
     params: mlp.ActorCritic
     opt_state: AdamState
-    env_state: FB.BState
+    env_state: FB.BState         # or a FastEnvState (engine 'fast')
     obs: torch.Tensor            # [N, obs_dim]
     key: torch.Tensor            # int32[2] threefry key, on the CPU
     # running episode-return accumulators (device-side Monitor)
@@ -253,15 +262,12 @@ def make_optimizer(pcfg: PPOConfig) -> ClipAdam:
 def init_train_state(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
                      n_envs: int, seed: int = 42, env_seed0: int = 0,
                      device="cuda") -> TrainState:
-    """A fresh train state.  The key chain is the JAX learner's
-    (``split(PRNGKey(seed))[0]``); the initial weights come from a
-    ``torch.Generator`` seeded with ``seed`` (SB3's orthogonal init), so
-    they differ from the JAX learner's."""
+    """A fresh train state, as the JAX learner makes it: ``PRNGKey(seed)``
+    splits into the learner's key chain and the key of the initial weights
+    (``mlp.init_params``)."""
     dev = resolve_device(device)
-    key = TF.split_key(TF.prng_key(seed))[0]
-    params = mlp.ActorCritic(spec.obs_dim, spec.n_actions,
-                             generator=torch.Generator().manual_seed(seed),
-                             device=dev)
+    key, pkey = TF.split_key(TF.prng_key(seed))
+    params = mlp.init_params(pkey, spec.obs_dim, spec.n_actions, device=dev)
     env_state = spec.reset_batch(cfg, n_envs, env_seed0, device=dev)
     return TrainState(
         params=params,

@@ -13,7 +13,12 @@ SB3's own layout and parameter names:
 
 f32 throughout; the products are ``torch.matmul``, as the JAX package
 leaves them to XLA.  The policy is not a bit-parity surface: it is held to
-the JAX package by tolerance (``tests/test_torch_policy.py``).
+the JAX package by tolerance (``tests/test_torch_policy.py``,
+``tests/test_torch_mlp_init.py``).
+
+``init_params`` draws the JAX package's initial weights from a threefry key
+(``jax.random.normal`` and a QR); ``from_torch_state_dict`` and
+``load_sb3_zip`` read an SB3 policy's weights.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..core import threefry as TF
 
 
 def _tower(obs_dim: int, hidden: Sequence[int]) -> nn.Sequential:
@@ -184,3 +190,80 @@ def load_npz(path: str, device="cuda") -> ActorCritic:
     params = ACParams(tuple(dense[:layers]), tuple(dense[layers:2 * layers]),
                       dense[2 * layers], dense[2 * layers + 1])
     return params_from_jax(params, device)
+
+
+def _orthogonal(key, shape, gain: float) -> np.ndarray:
+    """The JAX package's orthogonal init of a ``[in, out]`` weight from one
+    threefry key: the Q of a QR of a standard normal matrix, its columns'
+    signs set by R's diagonal, times ``gain``."""
+    n_rows, n_cols = shape
+    flat = TF.normal(key, (max(n_rows, n_cols), min(n_rows, n_cols)))
+    q, r = torch.linalg.qr(flat)
+    q = q * torch.sign(torch.diagonal(r))
+    if n_rows < n_cols:
+        q = q.T
+    return (gain * q[:n_rows, :n_cols]).numpy()
+
+
+def init_params(key, obs_dim: int, n_actions: int,
+                hidden: Sequence[int] = (32, 32), device="cuda"
+                ) -> ActorCritic:
+    """An ``ActorCritic`` with the JAX package's ``init_params`` weights for
+    ``key`` (an ``int32[2]`` tensor or a pair of ints): the key splits into
+    one key per layer (pi tower, vf tower, action head, value head), each
+    layer orthogonal with gain sqrt(2), 0.01 or 1.0, biases zero.  Neither
+    ``erfinv`` nor the QR is bitwise between the packages: the weights agree
+    with JAX's to a tolerance (``tests/test_torch_mlp_init.py``)."""
+    keys = iter(TF.split_key(key, 2 * len(hidden) + 2))
+
+    def tower():
+        layers, d_in = [], obs_dim
+        for d_out in hidden:
+            layers.append(Dense(_orthogonal(next(keys), (d_in, d_out),
+                                            float(np.sqrt(2))),
+                                np.zeros(d_out, np.float32)))
+            d_in = d_out
+        return tuple(layers), d_in
+
+    pi, d_pi = tower()
+    vf, d_vf = tower()
+    action = Dense(_orthogonal(next(keys), (d_pi, n_actions), 0.01),
+                   np.zeros(n_actions, np.float32))
+    value = Dense(_orthogonal(next(keys), (d_vf, 1), 1.0),
+                  np.zeros(1, np.float32))
+    return params_from_jax(ACParams(pi, vf, action, value), device)
+
+
+def from_torch_state_dict(sd, device="cuda") -> ActorCritic:
+    """An ``ActorCritic`` from an SB3 policy ``state_dict`` (a mapping of
+    tensors or arrays; SB3's ``mlp_extractor`` names).  Keys of other parts
+    of the policy are ignored."""
+    def dense(prefix):
+        w = sd[f"{prefix}.weight"]
+        b = sd[f"{prefix}.bias"]
+        w, b = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                else np.asarray(x) for x in (w, b))
+        return Dense(w.astype(np.float32).T, b.astype(np.float32))
+
+    towers = []
+    for name in ("policy_net", "value_net"):
+        layers, i = [], 0
+        while f"mlp_extractor.{name}.{i}.weight" in sd:
+            layers.append(dense(f"mlp_extractor.{name}.{i}"))
+            i += 2      # Linear, Tanh, Linear, Tanh ...
+        towers.append(tuple(layers))
+    return params_from_jax(ACParams(towers[0], towers[1], dense("action_net"),
+                                    dense("value_net")), device)
+
+
+def load_sb3_zip(path: str, device="cuda") -> ActorCritic:
+    """An ``ActorCritic`` from an SB3 ``.zip`` checkpoint without SB3: the
+    policy's state dict is the archive's ``policy.pth``."""
+    import io
+    import zipfile
+
+    with zipfile.ZipFile(path) as zf:
+        with zf.open("policy.pth") as f:
+            sd = torch.load(io.BytesIO(f.read()), map_location="cpu",
+                            weights_only=True)
+    return from_torch_state_dict(sd, device)

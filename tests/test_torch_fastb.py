@@ -29,7 +29,8 @@ LEAF_DTYPES = {
     "acc_belt": torch.float32, "acc_sorter": torch.float32,
     "input_occupancy": torch.float32, "belt_occupancy": torch.float32,
     "press_q": torch.float32, "ev_mat": torch.int16, "ev_n": torch.int16,
-    "ev_q": torch.int16, "last_press_started": torch.bool,
+    "ev_q": torch.int16, "bale_size": torch.int16, "bale_qual": torch.int16,
+    "last_press_started": torch.bool,
 }
 
 

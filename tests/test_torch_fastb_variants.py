@@ -44,14 +44,18 @@ def test_press_completion_events_bitwise(variant):
 
 
 def test_unported_paths_raise():
+    """What is still unported raises ``NotImplementedError`` naming its
+    ROADMAP item: the parity engine, sharded training and the parity
+    benchmark."""
     from marl_sortingenv_tpu_torch.config.config import load_config
-    from marl_sortingenv_tpu_torch.core import fastb as TB
+    from marl_sortingenv_tpu_torch.eval import harness
+    from marl_sortingenv_tpu_torch.learn import ppo
 
     cfg = load_config(**BASE)
-    st = TB.reset_batch(cfg, 0, 8, device="cpu")
-    for call in (lambda: TB.step_mono_model(cfg, st),
-                 lambda: TB.step_mono_random(cfg, st),
-                 lambda: TB.from_batch_first(st),
-                 lambda: TB.to_batch_first(st)):
+    for call in (lambda: ppo.spec_for("mono", engine="parity"),
+                 lambda: ppo.make_train_iteration(
+                     cfg, ppo.PPOConfig(), ppo.spec_for("mono"),
+                     mesh=object()),
+                 lambda: harness.run_model_benchmark(cfg, num_seeds=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()

@@ -5,7 +5,8 @@ On the CPU:
 * ``sort_material_plain`` against the JAX package's Pallas kernel
   ``sort_pallas.sort_material_fused`` in interpret mode, bitwise (leftover,
   true, false and the new keys), at 128 envs on stepped states of the
-  default and noise-0.05 configs;
+  default and noise-0.05 configs (support 16) and of configs at supports
+  24, 40 and 88;
 * ``sort_redistribute_plain`` against ``mvhg_pallas.sort_redistribute`` in
   interpret mode, bitwise, as tests/test_pallas_mvhg.py holds the JAX
   kernel to ``fastb.redistribute_u``, also at the JAX kernel's default
@@ -45,7 +46,12 @@ torch.set_num_threads(1)
 
 SORT_NPZ = os.path.join(os.path.dirname(__file__), "..", "artifacts",
                         "models_tuned", "PPO_Sorting_Tuned_100000.npz")
-CONFIGS = {"default": {}, "noise_0.05": {"noise_sorting": 0.05}}
+# the CPU tests' configs: supports 16 (default, noise 0.05), 24, 40 and 88
+CONFIGS = {"default": {}, "noise_0.05": {"noise_sorting": 0.05},
+           "support_24": {"noise_sorting": 0.2},
+           "support_40": {"baseline_accuracy": (0.2, 0.2, 0.2, 0.2)},
+           "support_88": {"input_batch_size": 250,
+                          "baseline_accuracy": (0.2, 0.2, 0.2, 0.2)}}
 
 
 def _stepped(cfg, n, steps, seed=3, device="cpu"):
@@ -117,8 +123,8 @@ def test_sort_redistribute_plain_matches_pallas():
 
 @pytest.mark.parametrize("cname", sorted(CONFIGS))
 def test_sort_redistribute_plain_matches_pallas_on_engine_states(cname):
-    """Bitwise at the engine's own support (16), on a stepped state with
-    the uniforms the engine draws (``fastb._sort_uniforms``)."""
+    """Bitwise at the engine's own support, on a stepped state with the
+    uniforms the engine draws (``fastb._sort_uniforms``)."""
     import jax.numpy as jnp
     from marl_sortingenv_tpu.ops import mvhg_pallas
 

@@ -234,9 +234,19 @@ def test_kernel_checks_its_arguments():
 
 
 def test_full_bale_mode_raises():
+    """The step kernel and its plain version carry the event log only, as
+    the JAX kernel does; a full-bale-mode step takes the eager body
+    (``fastb._dispatch``)."""
     cfg = load_config(bale_mode="full", max_steps=36)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TB.reset_batch(cfg, 0, 8, device="cpu")
+    st = TB.reset_batch(cfg, 0, 8, device="cpu")
+    assert st.ev_cnt is None and st.bale_size is not None
+    with pytest.raises(ValueError, match="bale_mode='events'"):
+        step_cuda.step_mono_kernel(cfg, st, None, variant="rule")
+    with pytest.raises(ValueError, match="bale_mode='events'"):
+        step_cuda.step_mono_plain(cfg, st, None, variant="rule")
+    before = step_cuda.LAUNCHES
+    st, out = TB.step_mono_rule(cfg, st)
+    assert step_cuda.LAUNCHES == before and st.ev_cnt is None
 
 
 # ---------------------------------------------------------------------------
