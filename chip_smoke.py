@@ -25,7 +25,16 @@ CPU path (run in worker processes meanwhile; a categorical draw may split
 only at a near-tie); the ``fast`` engine against ``fastb`` and a PPO
 iteration on it; and ``eval/harness.run_engine_benchmark`` on both
 engines against the JAX package's means, then timed per policy at 4096
-episodes.  The second-to-last line of standard output is a JSON
+episodes.  Last, phase 16 drives the bit-exact parity engine (no kernel
+of its own, and it launches none of the three): every step variant at 64
+envs x 210 autoreset steps on the default and noise-0.05 configs, the
+card's run bitwise against the CPU's (worker processes; an agent's argmax
+may split only at a near-tie), the parity 5-policy benchmark at 10 seeds x
+200 steps against the JAX package's per-seed table and the reference's
+means, and three timed PPO iterations of mono on the parity engine at
+4096 envs; the benchmark and the PPO iterations are timed once the
+workers have ended.
+The second-to-last line of standard output is a JSON
 ``kernels`` record; the last line is ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without those lines.  Without CUDA,
 or without the port next to this file, it exits non-zero at once.  Details
@@ -34,6 +43,7 @@ go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -809,6 +819,443 @@ def diagnose_bench_miss(cfg, policy, engine, agents, dev):
     return ties
 
 
+# ---- the parity engine: phase 16 ------------------------------------------
+
+# The parity 5-policy benchmark on the CPU with the JAX package (JAX 0.9.0,
+# x64 on, as its parity engine needs), per seed 1..10, masked, 200 steps:
+#   JAX_PLATFORMS=cpu python -c "import jax; from marl_sortingenv_tpu.config
+#   .config import load_config; from marl_sortingenv_tpu.eval import harness;
+#   from marl_sortingenv_tpu.models import mlp; from marl_sortingenv_tpu.
+#   utils.checkpoint import load_model; ag = lambda f, o, a: load_model(
+#   'artifacts/models_tuned/' + f, mlp.init_params(jax.random.PRNGKey(0),
+#   o, a)); print(harness.run_model_benchmark(load_config(), 10, 200,
+#   sort_params=ag('PPO_Sorting_Tuned_100000.npz', 13, 2), press_params=ag(
+#   'PPO_Pressing_Tuned_100000.npz', 16, 11), mono_params=ag(
+#   'PPO_Monolith_Tuned_100000.npz', 29, 22))[1])"
+# The Random and Rule-Based means are the reference's own numbers
+# (artifacts/benchmark_results.json): -86.84669390179657, 44.17809308063072.
+BENCH_PARITY_JAX = {
+    "Random": [-93.52043834461455, -96.50822581334674, -79.5004336307652,
+        -105.87454692320152, -78.07479554645109, -86.50008552567576,
+        -81.3839438980173, -93.8754451202734, -65.82093021934804,
+        -87.40809399627209],
+    "Rule-Based": [43.323907118661396, 42.788865609188484, 44.51832563188417,
+        45.33716297323927, 44.71890338477742, 46.66614439338525,
+        42.90220229027747, 45.28068250759824, 41.84182321991992,
+        44.40291367737545],
+    "PPO Sort-Only": [-77.8835761886536, -64.93122173192872,
+        -59.400262738453634, -79.03436138827482, -64.85558668031767,
+        -66.22111180793435, -58.687651327041976, -74.63664493327343,
+        -75.63248906098579, -44.8221181876384],
+    "PPO Modular": [46.35540048042628, 48.12344371648052, 58.97529150439743,
+        58.295458968438396, 59.49376281525825, 58.630098512055184,
+        47.86197884618586, 60.20842544897309, 46.50291482047502,
+        58.550100886201164],
+    "PPO Monolith": [83.08977456434741, 83.27984698161076, 80.5264048436311,
+        87.00421358790777, 87.57378087032446, 88.34912833176526,
+        83.096615985324, 87.50857573469969, 84.89078961439549,
+        80.28050520645904]}
+REF_PARITY_MEANS = {"Random": -86.84669390179657,
+                    "Rule-Based": 44.17809308063072}
+PARITY_N, PARITY_STEPS = 64, 210
+PARITY_TRAIN_STEPS = 64     # 16c's rollout; cut it (never 16b) to keep
+                            # phase 16 near 90 s
+
+
+def parity_jobs(n: int, steps: int):
+    """The runs of phase 16a: every step variant of the parity engine
+    (``core/step.py``) with and without each tuned agent, masking on and
+    off, on the default and the noise-0.05 config at max_steps 200:
+    (tag, kind, config overrides, masked, agents, first seed, envs, steps,
+    actions or None)."""
+    rng = np.random.default_rng(61)
+    n_act = {"external": 22, "sort": 2, "press": 11}
+    kinds = [("external", True, ()), ("external", False, ()),
+             ("rule", True, ()),
+             ("model", True, (None, None)), ("model", False, ("sort", None)),
+             ("model", False, (None, "press")),
+             ("model", True, ("sort", "press")),
+             ("legacy", True, ()), ("legacy", False, ()),
+             ("sort", True, ()), ("press", True, (None,)),
+             ("press", False, ("sort",)),
+             ("policy", True, ("mono",)), ("agent", True, ("mono",))]
+    jobs = []
+    for cname, kw in (("default", {}), ("noise_0.05",
+                                        {"noise_sorting": 0.05})):
+        for kind, masked, agents in kinds:
+            acts = (rng.integers(0, n_act[kind], (steps, n)).astype(np.int32)
+                    if kind in n_act else None)
+            tag = (f"{cname} {kind} masked={masked}"
+                   + (f" agents={agents}" if any(agents) else ""))
+            jobs.append((tag, kind, {"max_steps": 200, **kw}, masked, agents,
+                         500, n, steps, acts))
+    return jobs
+
+
+def _parity_rows(x: torch.Tensor) -> torch.Tensor:
+    """A batch-first tensor's elements as 32-bit halves of their bit
+    patterns: int64 [N, 2K], each in [0, 2**32)."""
+    x = x.contiguous()
+    if x.dtype == torch.float64:
+        v = x.view(torch.int64)
+    elif x.dtype == torch.float32:
+        v = x.view(torch.int32).to(torch.int64)
+    else:
+        v = x.to(torch.int64)
+    v = v.reshape(v.shape[0], -1)
+    return torch.cat([v & 0xFFFFFFFF, (v >> 32) & 0xFFFFFFFF], dim=1)
+
+
+def parity_digest(tensors) -> torch.Tensor:
+    """int64[N]: ``digest`` for batch-first tensors of any dtype, 64-bit
+    ones (the f64 and u64 leaves) included."""
+    acc = None
+    for i, x in enumerate(tensors):
+        v = _parity_rows(x)
+        w = _digest_weights(i, v.shape[1], v.device).T
+        d = (v * w).sum(dim=1) % DIGEST_P
+        acc = d * (i + 1) if acc is None else (acc + d * (i + 1)) % DIGEST_P
+    return acc
+
+
+def _flat_leaves(st):
+    from marl_sortingenv_tpu_torch.core import state as PSt
+    parts = st if isinstance(st, list) else [st]
+    return [x for part in parts for _, x in PSt.named_leaves(part)]
+
+
+class ParityTieLog:
+    """Marks, step by step, the envs where a tuned agent's argmax
+    (``step.agent_argmax``) had its two largest logits within ARGMAX_RTOL
+    of the larger: the one place the parity path may split between the
+    card and the CPU (their f32 products round apart)."""
+
+    def __init__(self):
+        self.cur = None
+
+    def install(self):
+        from marl_sortingenv_tpu_torch.core import step as PS
+        self._real = real = PS.agent_argmax
+
+        def arg(logits):
+            if self.cur is not None:
+                top = torch.topk(logits, 2, dim=-1).values
+                self.cur |= (top[:, 0] - top[:, 1]) <= ARGMAX_RTOL * top[
+                    :, 0].abs().clamp(min=1.0)
+            return real(logits)
+        PS.agent_argmax = arg
+        return self
+
+    def remove(self):
+        from marl_sortingenv_tpu_torch.core import step as PS
+        PS.agent_argmax = self._real
+
+    def begin(self, n, dev):
+        self.cur = torch.zeros(n, dtype=torch.bool, device=dev)
+
+    def end(self):
+        cur, self.cur = self.cur, None
+        return cur
+
+
+def parity_stepper(kind, cfg, masked, agents, seeds, dev):
+    """The autoreset step ``(states, action) -> (states, out)`` of a phase
+    16a run; ``states`` is [EnvState] or [EnvState, MTState] ('legacy')."""
+    from marl_sortingenv_tpu_torch.core import legacy_random as PLR
+    from marl_sortingenv_tpu_torch.core import step as PS
+    from marl_sortingenv_tpu_torch.core import wrappers as PW
+    pols = load_agents([a for a in agents], dev)
+    if kind == "legacy":
+        def step(states, a):
+            st, lr = states
+            st, lr, out = PS.step_mono_legacy_random(cfg, st, lr, masked)
+            st = PW._reset_where(cfg, st, out.terminated)
+            return [st, lr], out
+        return step, [PLR.mt19937_init(seeds, device=dev)]
+    fn = {"external": lambda c, s, a: PS.step_mono_external(c, s, a, masked),
+          "rule": lambda c, s, a: PS.step_mono_rule(c, s),
+          "model": lambda c, s, a: PS.step_mono_model(c, s, *pols, masked),
+          "sort": PS.step_sort,
+          "press": lambda c, s, a: PS.step_press(c, s, a, pols[0], masked),
+          "policy": lambda c, s, a: PS.step_mono_policy(c, s, pols[0],
+                                                        masked),
+          "agent": lambda c, s, a: PS.step_mono_agent(c, s, pols[0],
+                                                      masked)}[kind]
+    wrapped = PW.with_autoreset(cfg, fn)
+
+    def step(states, a):
+        st, out = wrapped(states[0], a)
+        return [st], out
+    return step, []
+
+
+def parity_trajectory(job, device: str):
+    """A worker process: the job's run of the parity engine on ``device``
+    with per-step records (action, output digest, state digest, near-tie
+    flags).  Returns (tag, records, the final state's leaves on the CPU,
+    the kernel launches of the run, host syncs, seconds)."""
+    from marl_sortingenv_tpu_torch.config.config import load_config
+    from marl_sortingenv_tpu_torch.core import rng as PR
+    from marl_sortingenv_tpu_torch.core import state as PSt
+    from marl_sortingenv_tpu_torch.core import step as PS
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag, kind, cfg_kw, masked, agents, seed0, n, steps, acts = job
+    dev = torch.device(device)
+    cfg = load_config(**cfg_kw)
+    seeds = np.arange(seed0, seed0 + n)
+    step, extra = parity_stepper(kind, cfg, masked, agents, seeds, dev)
+    states = [PSt.reset(cfg, seeds, device=dev)] + extra
+    log, recs = ParityTieLog().install(), []
+    before, syncs = launch_counts(), PR.HOST_SYNCS
+    t0 = time.perf_counter()
+    try:
+        for t in range(steps):
+            a = None if acts is None else torch.from_numpy(acts[t]).to(dev)
+            log.begin(n, dev)
+            states, out = step(states, a)
+            recs.append((out.action,
+                         parity_digest([getattr(out, f)
+                                        for f in PS.StepOut._fields]),
+                         parity_digest(_flat_leaves(states)), log.end()))
+    finally:
+        log.remove()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    rec = [torch.stack([r[i] for r in recs]).cpu() for i in range(4)]
+    return (tag, rec, [x.cpu() for x in _flat_leaves(states)], launched,
+            PR.HOST_SYNCS - syncs, secs)
+
+
+def parity_cpu(job):
+    return parity_trajectory(job, "cpu")
+
+
+def parity_card(job):
+    return parity_trajectory(job, "cuda")
+
+
+def match_parity(tag, rec_g, rec_c, fin_g, fin_c):
+    """Hold the card's parity run to the CPU's: per step the actions and
+    the digests of every output and every state leaf bitwise; an env whose
+    action differs must have met an argmax near-tie on either side, and
+    leaves the comparison from then on.  The final leaves of the other
+    envs equal.  Returns (the near-ties as (step, env), envs kept)."""
+    ag, og, dg, ng = rec_g
+    ac, oc, dc, nc = rec_c
+    steps, n = ag.shape
+    alive = torch.ones(n, dtype=torch.bool)
+    ties = []
+    for t in range(steps):
+        split = (ag[t] != ac[t]) & alive
+        for env in split.nonzero().flatten().tolist():
+            if not (ng[t, env] or nc[t, env]):
+                raise AssertionError(
+                    f"parity {tag}: step {t}, env {env}: action "
+                    f"{int(ag[t, env])} on the card, {int(ac[t, env])} on "
+                    "the CPU, and no near-tie")
+            ties.append((t, env))
+        alive &= ~split
+        if not (torch.equal(og[t][alive], oc[t][alive])
+                and torch.equal(dg[t][alive], dc[t][alive])):
+            raise AssertionError(f"parity {tag}: step {t}: the card's "
+                                 "state or outputs differ from the CPU's")
+    for i, (x, y) in enumerate(zip(fin_g, fin_c)):
+        if not torch.equal(x[alive], y[alive]):
+            raise AssertionError(f"parity {tag}: final leaf {i} differs")
+    return ties, int(alive.sum())
+
+
+def phase_parity(dev, agents, pcfg, n_train, pjobs) -> dict:
+    """Phase 16, the parity engine.  16a's runs (``pjobs``) go to spawned
+    workers (the CPU side in three, the card's in four) and are compared
+    as they end; then, with no worker left on the host, this process runs
+    and times 16b (the parity benchmark with ``agents``, the tuned sort,
+    press and mono agents) and 16c (PPO iterations of mono on the parity
+    engine at ``n_train`` envs with ``pcfg``).  The parity path runs none
+    of kernels 1-3, which the launch counters show.  Returns the
+    report."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing as mp
+    from marl_sortingenv_tpu_torch.config.config import load_config
+    from marl_sortingenv_tpu_torch.core import rng as PR
+    from marl_sortingenv_tpu_torch.eval import harness
+    from marl_sortingenv_tpu_torch.learn import ppo
+    spawn = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    parity_report = {"16a": {}, "16b": {}, "16c": {}}
+    with ProcessPoolExecutor(3, mp_context=spawn) as cpu_pool, \
+            ProcessPoolExecutor(4, mp_context=spawn) as card_pool:
+        cpu_futures = [cpu_pool.submit(parity_cpu, job) for job in pjobs]
+        card_futures = [card_pool.submit(parity_card, job) for job in pjobs]
+
+        # ---- 16a. the card's parity runs against the CPU's ----------------
+        total_ties = 0
+        for job, card_fut, cpu_fut in zip(pjobs, card_futures, cpu_futures):
+            tag, rec_g, fin_g, used_g, syncs_g, secs_g = card_fut.result()
+            _, rec_c, fin_c, used_c, _, secs_c = cpu_fut.result()
+            if any(used_g.values()) or any(used_c.values()):
+                raise AssertionError(f"parity {tag} launched {used_g}")
+            ties, kept = match_parity(tag, rec_g, rec_c, fin_g, fin_c)
+            total_ties += len(ties)
+            n, steps = job[6], job[7]
+            parity_report["16a"][tag] = {
+                "near_ties": ties, "envs_kept": kept,
+                "card_s": secs_g, "cpu_s": secs_c,
+                "card_ms_per_step": secs_g / steps * 1e3,
+                "host_syncs_per_step": syncs_g / steps}
+            print(f"phase 16a: {tag}: card == CPU, every state leaf and "
+                  f"output bitwise, {n} envs x {steps} autoreset steps: "
+                  f"{len(ties)} near-ties {ties}, {kept} envs held to the "
+                  f"end; card {secs_g / steps * 1e3:.2f} ms per step, "
+                  f"{syncs_g / steps:.2f} host syncs per step, no kernel "
+                  f"launched", flush=True)
+    # the workers have ended: 16b and 16c are timed alone on the host
+    t16a = time.perf_counter() - t0
+
+    # ---- 16b. the parity 5-policy benchmark, 10 seeds x 200 steps ----
+    # one run of the entry point; each policy's batch of seeds timed
+    # through the harness's per-policy runner
+    t1 = time.perf_counter()
+    cfg_p = load_config()
+    timed = {}
+    real = harness._policy_totals_parity
+
+    def timed_totals(cfg, key, *args):
+        syncs, w0 = PR.HOST_SYNCS, time.perf_counter()
+        out = real(cfg, key, *args)
+        timed[key] = (time.perf_counter() - w0, PR.HOST_SYNCS - syncs)
+        return out
+    zero_counts()
+    harness._policy_totals_parity = timed_totals
+    try:
+        summary, rows = harness.run_model_benchmark(
+            cfg_p, 10, 200, *agents, use_action_masking=True, device=dev)
+    finally:
+        harness._policy_totals_parity = real
+    if launch_counts() != {"step_mono": 0, "sort_material": 0,
+                           "sort_redistribute": 0}:
+        raise AssertionError(f"the parity benchmark launched "
+                             f"{launch_counts()}")
+    for key in harness.POLICY_KEYS:
+        got = [r[key] for r in rows]
+        if got != BENCH_PARITY_JAX[key]:
+            raise AssertionError(f"parity benchmark {key}: per-seed "
+                                 f"totals {got} != JAX "
+                                 f"{BENCH_PARITY_JAX[key]}")
+    for key, ref in REF_PARITY_MEANS.items():
+        if summary[key]["mean"] != ref:
+            raise AssertionError(f"parity benchmark {key}: mean "
+                                 f"{summary[key]['mean']!r} != the "
+                                 f"reference's {ref!r}")
+    print(f"phase 16b: run_model_benchmark on the card, 10 seeds x 200 "
+          f"steps, masked, tuned agents: every per-seed total of all 5 "
+          f"policies == the JAX table; Random mean "
+          f"{summary['Random']['mean']!r}, Rule-Based mean "
+          f"{summary['Rule-Based']['mean']!r} == the reference's; no "
+          f"kernel launched ({time.perf_counter() - t1:.1f} s)",
+          flush=True)
+    parity_report["16b"]["summary"] = summary
+    for key in harness.POLICY_KEYS:
+        wall, syncs = timed[key]
+        # the busy share of 5 profiled steps (the profiler's own
+        # bookkeeping of a thousand kernels per step is slow)
+        _, prof_us, busy, by_kernel, n_kern = profile_busy(
+            lambda key=key: real(cfg_p, key, list(range(1, 11)), 5,
+                                 *agents, True, dev))
+        parity_report["16b"][key] = {
+            "wall_s": wall, "env_steps_per_s": 10 * 200 / wall,
+            "host_syncs_per_step": syncs / 200,
+            "device_kernels_per_step": n_kern / 5,
+            "profiled_steps": 5, "profiled_wall_s": prof_us / 1e6,
+            "device_busy_share": busy,
+            "device_ms_by_kernel": {k: t / 1e3 for k, t in by_kernel[:6]}}
+        print(f"phase 16b: parity {key}, 10 seeds x 200 steps: "
+              f"{wall:.3f} s wall, {10 * 200 / wall:.1f} env-steps/s, "
+              f"{syncs / 200:.2f} host syncs per step; device busy "
+              f"{busy:.3f} over 5 profiled steps ({prof_us / 1e6:.3f} "
+              f"s), {n_kern / 5:.1f} device kernels per step; top: "
+              + ", ".join(f"{k[:32]} {t / 1e3:.2f} ms"
+                          for k, t in by_kernel[:3]), flush=True)
+
+    # ---- 16c. PPO iterations of mono on the parity engine --------------
+    # at the JAX benchmark's width: PARITY_TRAIN_STEPS env steps,
+    # minibatches of 16384, 4 epochs; 3 timed iterations after 1 warm-up
+    t1 = time.perf_counter()
+    spec = ppo.spec_for("mono")
+    if spec.engine != "parity":
+        raise AssertionError(f"spec_for's default engine {spec.engine}")
+    pcfg_p = dataclasses.replace(pcfg, n_steps=PARITY_TRAIN_STEPS)
+    ts = ppo.init_train_state(cfg_p, pcfg_p, spec, n_train, seed=0,
+                              device=dev)
+    it = ppo.make_train_iteration(cfg_p, pcfg_p, spec)
+    step_fn = spec.step_fn(None, True)
+    zero_counts()
+    ts, stats = it(ts)                                  # warm-up
+    syncs, rows = PR.HOST_SYNCS, []
+    for _ in range(3):
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(3))
+        e0.record()
+        ts, trs, last_value = ppo.collect_rollout(cfg_p, pcfg_p, spec, ts,
+                                                  step_fn, True)
+        e1.record()
+        adv, ret = ppo.compute_gae(pcfg_p, trs, last_value)
+        ts, stats = ppo.ppo_update(pcfg_p, ts, trs, adv, ret)
+        e2.record()
+        torch.cuda.synchronize()
+        rows.append((e0.elapsed_time(e1), e1.elapsed_time(e2)))
+    syncs = PR.HOST_SYNCS - syncs
+    roll_ms = float(np.mean([r[0] for r in rows]))
+    upd_ms = float(np.mean([r[1] for r in rows]))
+    loss = float(stats["loss"])
+    if not np.isfinite(loss) or ts.ep_return_acc.dtype != torch.float64:
+        raise AssertionError(f"parity training: loss {loss}, return "
+                             f"dtype {ts.ep_return_acc.dtype}")
+    # the busy share of an iteration of 4 env steps (same envs, one
+    # minibatch per epoch)
+    pcfg_4 = dataclasses.replace(pcfg, n_steps=4)
+    it4 = ppo.make_train_iteration(cfg_p, pcfg_4, spec)
+    (ts, stats), wall_us, busy, by_kernel, n_kern = profile_busy(
+        lambda: it4(ts))
+    if launch_counts() != {"step_mono": 0, "sort_material": 0,
+                           "sort_redistribute": 0}:
+        raise AssertionError(f"parity training launched {launch_counts()}")
+    n_steps = pcfg_p.n_steps
+    rate = n_train * n_steps / ((roll_ms + upd_ms) / 1e3)
+    parity_report["16c"] = {
+        "n_envs": n_train, "n_steps": n_steps,
+        "batch_size": pcfg_p.batch_size, "n_epochs": pcfg_p.n_epochs,
+        "rollout_ms": roll_ms, "update_ms": upd_ms,
+        "iterations_ms": rows, "loss": loss, "samples_per_s": rate,
+        "host_syncs_per_env_step": syncs / (3 * n_steps),
+        "profiled_iteration_steps": 4,
+        "profiled_iteration_wall_ms": wall_us / 1e3,
+        "device_busy_share": busy,
+        "device_kernels_per_profiled_iteration": n_kern,
+        "device_ms_by_kernel": {k: t / 1e3 for k, t in by_kernel[:8]}}
+    print(f"phase 16c: train mono on the parity engine at {n_train} envs "
+          f"(n_steps {n_steps}, minibatch {pcfg_p.batch_size}, "
+          f"{pcfg_p.n_epochs} epochs, shuffle block "
+          f"{pcfg_p.shuffle_block}): {rate:.1f} samples/s; rollout "
+          f"{roll_ms:.3f} ms, update {upd_ms:.3f} ms (CUDA events, mean of "
+          f"3 iterations after 1 warm-up: {rows}); "
+          f"{syncs / (3 * n_steps):.2f} host syncs per env step; loss {loss:.6f}; a 4-step iteration under the "
+          f"profiler: {wall_us / 1e3:.1f} ms wall, device busy "
+          f"{busy:.3f}, {n_kern} device kernels; no kernel 1-3 "
+          f"launched; top: "
+          + ", ".join(f"{k[:32]} {t / 1e3:.2f} ms"
+                      for k, t in by_kernel[:3])
+          + f" ({time.perf_counter() - t1:.1f} s)", flush=True)
+
+    print(f"phase 16: {len(pjobs)} parity runs, {total_ties} near-ties; "
+          f"{time.perf_counter() - t0:.1f} s (16a {t16a:.1f} s)", flush=True)
+    return parity_report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -912,7 +1359,7 @@ def main() -> int:
     # ---- 5. the slice at full width --------------------------------------
     model = mlp.ActorCritic(29, 22, generator=torch.Generator().manual_seed(0),
                             device=dev)
-    spec = ppo.spec_for("mono")
+    spec = ppo.spec_for("mono", engine="fastb")
     # a small input against the CPU path (same weights, moved)
     model_cpu = mlp.ActorCritic(29, 22, generator=torch.Generator(
         ).manual_seed(0), device="cpu")
@@ -1162,7 +1609,7 @@ def main() -> int:
     report["train"] = {}
     for name, sp in (("mono", None), ("press", sort_agent)):
         t0 = time.perf_counter()
-        spec = ppo.spec_for(name)
+        spec = ppo.spec_for(name, engine="fastb")
         ts = ppo.init_train_state(cfg, pcfg, spec, n_train, seed=0,
                                   device=dev)
         p0 = [p.detach().clone() for p in ts.params.parameters()]
@@ -1534,6 +1981,12 @@ def main() -> int:
     slice_report["bench_4096x200_fastb"] = big
     report["slice"] = slice_report
     print(f"phase 15: {time.perf_counter() - t1:.1f} s", flush=True)
+
+    # ---- 16. the bit-exact parity engine ------------------------------------
+    report["parity"] = phase_parity(dev, agents, pcfg, n_train,
+                                    parity_jobs(PARITY_N, PARITY_STEPS))
+    add_launches(main_launches, by_path, "parity engine (16a-c)", {})
+
     report["main_path_launches"] = main_launches
     report["launches_by_path"] = by_path
     for kname, v in main_launches.items():

@@ -1,6 +1,7 @@
 """On-device (Maskable) PPO learner on the fast engines (the batch-last
-``fastb`` and its batch-first view ``fast``): the port of
-``marl_sortingenv_tpu.learn.ppo`` (SB3's ``PPO`` / ``MaskablePPO``).
+``fastb`` and its batch-first view ``fast``) and the bit-exact ``parity``
+engine: the port of ``marl_sortingenv_tpu.learn.ppo`` (SB3's ``PPO`` /
+``MaskablePPO``).
 
 The same algorithm and the same random streams as the JAX learner: the
 learner's key chain (``TrainState.key``) is split exactly as the JAX
@@ -13,7 +14,7 @@ bitwise (``tests/test_torch_ppo.py``): products and reductions round
 differently in PyTorch and XLA.
 
 What replaces JAX's machinery: the rollout ``lax.scan`` is a Python loop
-over ``n_steps`` (each env step is one kernel launch on CUDA), the update
+over ``n_steps`` (a fastb env step is one kernel launch on CUDA), the update
 scans are Python loops over epochs and minibatches with ``torch.autograd``
 for the gradient, and ``optax``'s ``flatten(chain(clip_by_global_norm,
 adam))`` is ``ClipAdam`` over ONE flattened parameter vector.  The
@@ -36,6 +37,7 @@ from .. import resolve_device
 from ..config.config import SimConfig
 from ..core import fast as FE
 from ..core import fastb as FB
+from ..core import parity as PE
 from ..core import threefry as TF
 from ..models import mlp
 
@@ -78,21 +80,22 @@ class PPOConfig:
 
 @dataclasses.dataclass(frozen=True)
 class VariantSpec:
-    """Learner-facing description of one env variant on the batch-last
-    ``engine='fastb'`` or the batch-first ``engine='fast'`` (its view,
-    ``core/fast.py``).  The parity engine is not ported yet."""
+    """Learner-facing description of one env variant on
+    ``engine='parity'`` (the bit-exact u64/f64 engine, ``core/parity.py``),
+    the batch-last ``engine='fastb'`` or the batch-first ``engine='fast'``
+    (its view, ``core/fast.py``)."""
     name: str                 # 'sort' | 'press' | 'mono'
     obs_dim: int
     n_actions: int
     use_mask: bool
-    engine: str = "fastb"
+    engine: str = "parity"
 
     def __post_init__(self):
-        if self.engine not in ("fast", "fastb"):
-            _todo(f"engine={self.engine!r}", "Queue 1, item 5")
+        if self.engine not in ENGINES:
+            raise ValueError(f"unknown engine {self.engine!r}")
 
     def _mod(self):
-        return FE if self.engine == "fast" else FB
+        return ENGINES[self.engine]
 
     def mask_fn(self, cfg: SimConfig, st):
         if self.name == "press":
@@ -133,9 +136,11 @@ class VariantSpec:
 
     def reset_batch(self, cfg: SimConfig, n_envs: int, seed0: int = 0,
                     device="cuda"):
+        """``n_envs`` fresh envs: on 'parity' the envs of seeds seed0,
+        seed0 + 1, ..., on the fast engines the threefry key of seed0."""
         return self._mod().reset_batch(cfg, seed0, n_envs, device=device)
 
-    # both engines' functions are batched: obs [N, d], masks [N, A]
+    # every engine's functions are batched: obs [N, d], masks [N, A]
 
     def batched_obs(self, cfg: SimConfig):
         return lambda st: self.obs_fn(cfg, st)
@@ -164,12 +169,13 @@ class VariantSpec:
         return self.wrap_autoreset(cfg, step_fn)
 
 
+ENGINES = {"parity": PE, "fast": FE, "fastb": FB}
 SORT_SPEC = VariantSpec("sort", 13, 2, use_mask=False)
 PRESS_SPEC = VariantSpec("press", 16, 11, use_mask=True)
 MONO_SPEC = VariantSpec("mono", 29, 22, use_mask=True)
 
 
-def spec_for(name: str, engine: str = "fastb") -> VariantSpec:
+def spec_for(name: str, engine: str = "parity") -> VariantSpec:
     base = {"sort": SORT_SPEC, "press": PRESS_SPEC, "mono": MONO_SPEC}[name]
     return dataclasses.replace(base, engine=engine)
 
@@ -194,12 +200,13 @@ class AdamState(NamedTuple):
 class TrainState(NamedTuple):
     params: mlp.ActorCritic
     opt_state: AdamState
-    env_state: FB.BState         # or a FastEnvState (engine 'fast')
+    env_state: FB.BState         # a FastEnvState ('fast'), EnvState ('parity')
     obs: torch.Tensor            # [N, obs_dim]
     key: torch.Tensor            # int32[2] threefry key, on the CPU
-    # running episode-return accumulators (device-side Monitor)
-    ep_return_acc: torch.Tensor  # [N] f32
-    last_ep_return: torch.Tensor  # [N] f32
+    # running episode-return accumulators (device-side Monitor): f64 on
+    # the parity engine, f32 on the fast ones
+    ep_return_acc: torch.Tensor  # [N]
+    last_ep_return: torch.Tensor  # [N]
     update_count: torch.Tensor   # i32 scalar
 
 
@@ -269,16 +276,23 @@ def init_train_state(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
     key, pkey = TF.split_key(TF.prng_key(seed))
     params = mlp.init_params(pkey, spec.obs_dim, spec.n_actions, device=dev)
     env_state = spec.reset_batch(cfg, n_envs, env_seed0, device=dev)
+    acc = _return_dtype(spec)
     return TrainState(
         params=params,
         opt_state=make_optimizer(pcfg).init(params),
         env_state=env_state,
         obs=spec.batched_obs(cfg)(env_state),
         key=key,
-        ep_return_acc=torch.zeros(n_envs, dtype=F32, device=dev),
-        last_ep_return=torch.zeros(n_envs, dtype=F32, device=dev),
+        ep_return_acc=torch.zeros(n_envs, dtype=acc, device=dev),
+        last_ep_return=torch.zeros(n_envs, dtype=acc, device=dev),
         update_count=torch.zeros((), dtype=I32, device=dev),
     )
+
+
+def _return_dtype(spec: VariantSpec) -> torch.dtype:
+    """The dtype of returns summed over steps: the parity engine's f64
+    rewards are summed in f64, the fast engines' in f32."""
+    return torch.float64 if spec.engine == "parity" else F32
 
 
 def _onehot_select(logp_all: torch.Tensor, action: torch.Tensor, dim: int):
@@ -533,7 +547,8 @@ def evaluate(cfg: SimConfig, spec: VariantSpec, params: mlp.ActorCritic,
              deterministic: bool = True, key=None,
              device="cuda") -> torch.Tensor:
     """SB3 ``evaluate_policy`` equivalent: run episodes with the
-    (deterministic) policy, return per-env cumulative rewards f32[n_envs].
+    (deterministic) policy, return per-env cumulative rewards [n_envs]
+    (f64 on the parity engine, f32 on the fast ones).
     Episodes run without autoreset; rewards after an env's first terminal
     step do not count.  With ``deterministic=False`` the actions are
     categorical draws from ``key`` (default ``PRNGKey(0)``), split once per
@@ -544,7 +559,7 @@ def evaluate(cfg: SimConfig, spec: VariantSpec, params: mlp.ActorCritic,
     obs = spec.obs_fn(cfg, st)
     if key is None:
         key = TF.prng_key(0)
-    total = torch.zeros(n_envs, dtype=F32, device=dev)
+    total = torch.zeros(n_envs, dtype=_return_dtype(spec), device=dev)
     alive = torch.ones(n_envs, dtype=torch.bool, device=dev)
     for _ in range(n_steps):
         logits = params.policy_logits(obs)

@@ -45,17 +45,16 @@ def test_press_completion_events_bitwise(variant):
 
 def test_unported_paths_raise():
     """What is still unported raises ``NotImplementedError`` naming its
-    ROADMAP item: the parity engine, sharded training and the parity
-    benchmark."""
+    ROADMAP item: sharded training and the episode dashboard."""
     from marl_sortingenv_tpu_torch.config.config import load_config
     from marl_sortingenv_tpu_torch.eval import harness
     from marl_sortingenv_tpu_torch.learn import ppo
 
     cfg = load_config(**BASE)
-    for call in (lambda: ppo.spec_for("mono", engine="parity"),
-                 lambda: ppo.make_train_iteration(
-                     cfg, ppo.PPOConfig(), ppo.spec_for("mono"),
+    for call in (lambda: ppo.make_train_iteration(
+                     cfg, ppo.PPOConfig(), ppo.spec_for("mono", "fastb"),
                      mesh=object()),
-                 lambda: harness.run_model_benchmark(cfg, num_seeds=1)):
+                 lambda: harness.run_episode(cfg, 1, 2, render=True,
+                                             device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()

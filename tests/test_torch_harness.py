@@ -5,8 +5,8 @@ the tuned agents of ``artifacts/models_tuned``, 16 episodes x 60 steps,
 masked.  Each policy's mean within 1e-4 of JAX's and its std within 1e-3:
 the trajectories are the same, the sorting reward's tanh differs in the
 last bits (4 ulp a step, summed over 60 steps).  The JAX engine runs with
-x64 off, as in production (see test_torch_fastb_model).  The parts of the
-harness that need the parity engine raise."""
+x64 off, as in production (see test_torch_fastb_model).  The parity parts
+of the harness are held to JAX in test_torch_parity_harness.py."""
 import pytest
 import torch
 
@@ -46,7 +46,10 @@ def test_engine_benchmark_options_and_unported_parts():
     assert list(res) == ["Rule-Based", "PPO Sort-Only", "PPO Modular"]
     with pytest.raises(ValueError, match="unknown engine"):
         harness.run_engine_benchmark(cfg, "parity", device="cpu")
+    # the parity parts run on CUDA unless asked for the CPU
     for fn in (harness.run_episode, harness.benchmark_seed_all,
                harness.run_model_benchmark, harness.compare_engine_drift):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        if torch.cuda.is_available():
+            continue
+        with pytest.raises(RuntimeError, match="device='cpu'"):
             fn(cfg, 1, 10)

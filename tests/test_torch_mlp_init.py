@@ -84,7 +84,7 @@ def test_init_train_state_weights_are_jax_learners():
         ts_j = jppo.init_train_state(jload(**kw), jppo.PPOConfig(),
                                      jppo.spec_for(name, "fastb"), 4, seed=42)
         ts_t = ppo.init_train_state(load_config(**kw), ppo.PPOConfig(),
-                                    ppo.spec_for(name), 4, seed=42,
+                                    ppo.spec_for(name, "fastb"), 4, seed=42,
                                     device="cpu")
         assert torch.equal(ts_t.key, _key(ts_j.key))
         for a, b in zip(mlp.params_leaves(mlp.params_to_jax(ts_t.params)),

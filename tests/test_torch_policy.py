@@ -85,7 +85,7 @@ def test_orthogonal_init_layout():
 @pytest.mark.parametrize("name,n_envs,n_steps,max_steps", [
     ("mono", 128, 200, 200), ("sort", 64, 40, 36), ("press", 64, 40, 36)])
 def test_evaluate_matches_jax(weights, name, n_envs, n_steps, max_steps):
-    spec_t = ppo.spec_for(name)
+    spec_t = ppo.spec_for(name, "fastb")
     if name == "mono":
         params, model = weights
     else:
@@ -165,11 +165,26 @@ def test_entry_points_need_cuda_or_explicit_cpu():
         mlp.ActorCritic(29, 22)
     model = mlp.ActorCritic(29, 22, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        ppo.evaluate(cfg, ppo.spec_for("mono"), model, 4, 2)
+        ppo.evaluate(cfg, ppo.spec_for("mono", "fastb"), model, 4, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        ppo.init_train_state(cfg, ppo.PPOConfig(), ppo.spec_for("mono"), 4)
+        ppo.init_train_state(cfg, ppo.PPOConfig(),
+                             ppo.spec_for("mono", "fastb"), 4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ppo.make_train_iteration(cfg, ppo.PPOConfig(), ppo.spec_for("mono"),
+        ppo.make_train_iteration(cfg, ppo.PPOConfig(),
+                                 ppo.spec_for("mono", "fastb"),
                                  mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ppo.spec_for("mono", engine="parity")
+    # the parity engine's entry points too
+    from marl_sortingenv_tpu_torch.core import legacy_random as LR
+    from marl_sortingenv_tpu_torch.core import rng as R
+    from marl_sortingenv_tpu_torch.core import state as S
+    from marl_sortingenv_tpu_torch.eval import harness
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        S.reset(cfg, 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        R.pcg64_init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LR.mt19937_init(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ppo.evaluate(cfg, ppo.spec_for("mono", "parity"), model, 4, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        harness.run_model_benchmark(cfg, 1, 2)

@@ -154,7 +154,7 @@ def test_loss_value_stats_and_grads_match_jax(name):
     from marl_sortingenv_tpu.learn import ppo as jppo
     from marl_sortingenv_tpu.models import mlp as jmlp
 
-    spec = ppo.spec_for(name)
+    spec = ppo.spec_for(name, "fastb")
     params_j = jmlp.init_params(jax.random.PRNGKey(3), spec.obs_dim,
                                 spec.n_actions)
     model = mlp.params_from_jax(jax.tree.map(np.asarray, params_j),
@@ -241,7 +241,8 @@ def _pair_states(name, n_envs, pcfg_kw, seed=7):
     from marl_sortingenv_tpu.learn import ppo as jppo
 
     cfg_j, cfg_t = jload(**CFG_KW), load_config(**CFG_KW)
-    spec_j, spec_t = jppo.spec_for(name, engine="fastb"), ppo.spec_for(name)
+    spec_j = jppo.spec_for(name, engine="fastb")
+    spec_t = ppo.spec_for(name, "fastb")
     pj, pt = jppo.PPOConfig(**pcfg_kw), ppo.PPOConfig(**pcfg_kw)
     ts_j = jppo.init_train_state(cfg_j, pj, spec_j, n_envs=n_envs, seed=seed)
     ts_t = ppo.init_train_state(cfg_t, pt, spec_t, n_envs=n_envs, seed=seed,
@@ -358,7 +359,8 @@ def test_evaluate_stochastic_matches_jax():
                                 device="cpu")
     ref = jppo.evaluate(jload(**CFG_KW), jppo.spec_for("mono", "fastb"),
                         params_j, 8, 50, deterministic=False)
-    got = ppo.evaluate(load_config(**CFG_KW), ppo.spec_for("mono"), model,
+    got = ppo.evaluate(load_config(**CFG_KW), ppo.spec_for("mono", "fastb"),
+                       model,
                        8, 50, deterministic=False, device="cpu")
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-4)
@@ -369,7 +371,7 @@ def test_train_iteration_and_run_agree():
     calls (the port has no scan to differ): bitwise on the CPU."""
     cfg = load_config(**CFG_KW)
     pc = ppo.PPOConfig(n_steps=8, batch_size=16, n_epochs=2)
-    spec = ppo.spec_for("mono")
+    spec = ppo.spec_for("mono", "fastb")
     it = ppo.make_train_iteration(cfg, pc, spec)
     ts_a = ppo.init_train_state(cfg, pc, spec, 4, seed=7, device="cpu")
     losses = []
@@ -393,7 +395,7 @@ def test_train_iteration_and_run_agree():
 def _floor_setup(name, sort_policy=None):
     cfg = load_config(max_steps=200, noise_sorting=0.0, balesize=200)
     pcfg = ppo.PPOConfig.tuned(n_steps=128, batch_size=256, n_epochs=4)
-    spec = ppo.spec_for(name)
+    spec = ppo.spec_for(name, "fastb")
     ts = ppo.init_train_state(cfg, pcfg, spec, n_envs=32, seed=42,
                               device="cpu")
 
@@ -435,7 +437,7 @@ def test_cuda_train_iteration_launches_kernels(cuda, name):
     cfg = load_config(max_steps=50)
     pc = ppo.PPOConfig(n_steps=16, batch_size=256, n_epochs=2,
                        shuffle_block=16)
-    spec = ppo.spec_for(name)
+    spec = ppo.spec_for(name, "fastb")
     sp = (mlp.load_npz(SORT_NPZ, device=cuda).requires_grad_(False)
           if name == "press" else None)
     ts = ppo.init_train_state(cfg, pc, spec, 64, device=cuda)

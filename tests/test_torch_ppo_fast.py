@@ -4,7 +4,7 @@ one ``make_train_iteration`` (16 envs x 8 steps, 2 epochs x 4 minibatches)
 from the same parameters and key, masked and unmasked mono and the sort
 agent.  The tolerances of tests/test_torch_ppo.py: the key chain and the
 env state bitwise, the minibatches the same, the parameters to atol 2e-6
-after 8 Adam steps, the stats to rtol 1e-4.  ``parity`` still raises."""
+after 8 Adam steps, the stats to rtol 1e-4."""
 import numpy as np
 import pytest
 import torch
@@ -59,7 +59,10 @@ def test_fast_train_iteration_matches_jax(name, masked):
 
 
 def test_parity_engine_still_raises():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        ppo.spec_for("mono", engine="parity")
+    """The engine names: 'parity' (the default since the parity engine
+    was ported) and the fast engines; any other name raises."""
+    with pytest.raises(ValueError, match="unknown engine"):
+        ppo.spec_for("mono", engine="exact")
+    assert ppo.spec_for("mono").engine == "parity"
     spec = ppo.spec_for("press", engine="fast")
     assert spec._mod() is FE

@@ -89,7 +89,7 @@ def test_npz_files_pass_between_jax_and_the_port(tmp_path):
 
 def test_train_state_round_trip_bitwise(tmp_path):
     pc = ppo.PPOConfig(n_steps=8, batch_size=16, n_epochs=1)
-    spec = ppo.spec_for("mono")
+    spec = ppo.spec_for("mono", "fastb")
     ts = ppo.init_train_state(CFG, pc, spec, 4, seed=1, device="cpu")
     ts, _ = ppo.make_train_iteration(CFG, pc, spec)(ts)
     tree = {"ts": ts, "iter": 3, "best_eval": -1.5, "best_params": ts.params,
