@@ -10,13 +10,17 @@ bitwise against the CPU path, and drives the port's main paths and times
 them: policy evaluation and the fused-policy autoreset rollout at 4096 and
 65536 envs; PPO training of the mono agent and of the press agent with the
 frozen tuned sort agent at the JAX benchmark's width (4096 envs, 64 steps,
-minibatches of 16384, 4 epochs, shuffle blocks of 128); and the trainer's
-sort -> press -> mono flow.  The sort kernels are timed alone beside their
+minibatches of 16384, 4 epochs, shuffle blocks of 128); and the flow,
+``run_training_flow`` at the CLI's defaults (16 envs; sort -> press ->
+mono, two PPO iterations each, then the parity 5-policy benchmark at 10
+seeds x 200 steps, whose Random and Rule-Based rows must equal the
+reference's); kernels 1 and 2 are held against their plain versions at the
+flow's widths (16 and 10 envs) as well as at 4096.  The sort kernels are timed alone beside their
 bounds, and every design of the three kernels (a group of lanes per env,
 ``sort_cuda.DESIGNS`` and ``mvhg_cuda.REDISTRIBUTE_DESIGNS``) is held
-bitwise against its plain version and timed from 4096 to 65536 envs at
-supports 16, 32, 40 and 88, and kernel 3 also at 128 (``--sweep`` runs
-that phase alone).  Then the paths that run the eager step with its
+bitwise against its plain version and timed at 4096 and 65536 envs
+(``--sweep`` runs that phase alone, also at 8192 to 32768 envs) at
+supports 16, 32, 40 and 88, and kernel 3 also at 128.  Then the paths that run the eager step with its
 sorting core on kernel 2, at 4096 envs x 200 autoreset steps: full-bale
 mode in every variant (also against events mode through kernel 1 and
 ``events_to_full``) and the model and random steps of the engine
@@ -33,7 +37,14 @@ may split only at a near-tie), the parity 5-policy benchmark at 10 seeds x
 200 steps against the JAX package's per-seed table and the reference's
 means, and three timed PPO iterations of mono on the parity engine at
 4096 envs; the benchmark and the PPO iterations are timed once the
-workers have ended.
+workers have ended.  Phase 17 runs the Gymnasium drop-in envs
+(``envs.py``, on the parity engine) in every class and action source for
+210 steps at max_steps 200, the card's Gym loop against the CPU's in
+worker processes (every obs, reward, terminated, info, mask, log,
+accessor and checksum line equal), times one loop per class, and runs
+``check_env`` and ``testing.test_env`` on the card.  The card's machine
+has no matplotlib (``CARD_PACKAGES``): what draws figures is held on the
+CPU only.
 The second-to-last line of standard output is a JSON
 ``kernels`` record; the last line is ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without those lines.  Without CUDA,
@@ -286,7 +297,7 @@ def _sweep_designs(rows, kname, designs, n, support, b, run, check, ptxas):
 def _outputs_equal(tag, names, got, want):
     for nm, x, y in zip(names, got, want):
         if not torch.equal(x, y):
-            raise AssertionError(f"design sweep: {tag}: {nm} differs")
+            raise AssertionError(f"{tag}: {nm} differs")
 
 
 def _report_choice(rows, chosen, support):
@@ -347,7 +358,7 @@ def design_sweep(cfg, dev, gen, widths=SWEEP_WIDTHS) -> dict:
             sort_bound(support, n), lambda d: sort_cuda.sort_material_kernel(
                 counts, acc, keys, support, design=d),
             lambda d, out, n=n: _outputs_equal(
-                f"sort_material {d} at {n} envs",
+                f"design sweep: sort_material {d} at {n} envs",
                 ("leftover", "true", "false", "keys"), out, p2), ptxas)
         us, _ = no_launch(TB._sort_uniforms, keys)
         c3, a3, u3 = (x.T.contiguous() for x in (counts, acc, us))
@@ -376,7 +387,7 @@ def sweep_redistribute(rows, c3, a3, u3, support, ptxas) -> None:
         lambda d: mvhg_cuda.sort_redistribute_kernel(c3, a3, u3, support,
                                                      design=d),
         lambda d, out: _outputs_equal(
-            f"sort_redistribute {d} at {n} envs",
+            f"design sweep: sort_redistribute {d} at {n} envs",
             ("leftover", "true", "false"), out, p3), ptxas)
 
 
@@ -539,6 +550,14 @@ def out_digest(out) -> torch.Tensor:
     return digest([out.obs.T, out.terminated, out.press_reward, out.purity])
 
 
+def argmax_near_tie(logits: torch.Tensor) -> torch.Tensor:
+    """Whether the two largest logits of each row lie within ARGMAX_RTOL of
+    the larger: an argmax that may split between the card and the CPU."""
+    top = torch.topk(logits, 2, dim=-1).values
+    return (top[..., 0] - top[..., 1]) <= ARGMAX_RTOL * top[
+        ..., 0].abs().clamp(min=1.0)
+
+
 class TieLog:
     """Marks, step by step, the envs that drew at a near-tie: a categorical
     draw (``fastb._vcategorical``) whose two largest perturbed logits lie
@@ -566,9 +585,7 @@ class TieLog:
 
         def arg(logits):
             if self.cur is not None and logits.shape[-1] > 1:
-                top = torch.topk(logits, 2, dim=-1).values
-                self.cur |= (top[:, 0] - top[:, 1]) <= ARGMAX_RTOL * top[
-                    :, 0].abs().clamp(min=1.0)
+                self.cur |= argmax_near_tie(logits)
             return real_arg(logits)
         TB._vcategorical, TB.agent_argmax = cat, arg
         return self
@@ -939,9 +956,7 @@ class ParityTieLog:
 
         def arg(logits):
             if self.cur is not None:
-                top = torch.topk(logits, 2, dim=-1).values
-                self.cur |= (top[:, 0] - top[:, 1]) <= ARGMAX_RTOL * top[
-                    :, 0].abs().clamp(min=1.0)
+                self.cur |= argmax_near_tie(logits)
             return real(logits)
         PS.agent_argmax = arg
         return self
@@ -1256,6 +1271,570 @@ def phase_parity(dev, agents, pcfg, n_train, pjobs) -> dict:
     return parity_report
 
 
+# ---- the flow and the envs: phases 9 and 17 ----------------------------------
+
+# What the card's machine has of the host modules' optional packages: its
+# answer to importlib.util.find_spec (phase 17 prints it again).  No
+# gymnasium, so the envs run there on the shim of envs.py; no matplotlib,
+# so every path that draws a figure (an env's render, viz/, eval/plots,
+# main.run_sim, a test_env episode that ends) is held on the CPU only
+# (tests/test_torch_{host,cli}.py), and phase 9 drives the flow through
+# run_training_flow, as main.run_sim drives it, not through the CLI.
+CARD_PACKAGES = {"gymnasium": False, "matplotlib": False, "pandas": True,
+                 "cv2": True}
+FLOW_TIMESTEPS = 4096   # the CLI's 100,000 cut to two iterations per stage
+REF_BENCH_JSON = ROOT / "artifacts" / "benchmark_results.json"
+ENV_STEPS, ENV_MAX_STEPS, ENV_SEED = 210, 200, 42
+ENV_TIMED_STEPS = 100   # the timed Gym loop per class, alone on the host
+ENV_ACCESSORS = ("container_materials", "press_state", "bale_count",
+                 "current_step")
+
+
+def flow_steps_ab(cfg, dev) -> dict:
+    """Phase 9's kernels against their plain versions at the flow's own
+    widths and config: each stage's step as ``train_agent`` builds it (the
+    press stage with the tuned sort agent frozen in place of the sort
+    stage's), the rollout's autoreset step at 16 envs from reset across
+    the episode's end, and ``ppo.evaluate``'s step (no autoreset) at its 10
+    envs over one episode, on the same random actions.  Kernel 1 (sort,
+    mono) or kernel 2 (press) launches once per step, the other never.  In
+    two windows of 12 steps, the first from reset and the second up to and
+    (the rollout) across the episode's end, the kernel path is held
+    bitwise in every leaf and output against the plain body
+    (``fastb.eager_step``), which starts each window from the kernel
+    path's state; between them the kernel path steps alone (the plain
+    body's host time would double the phase).  Returns the steps held per
+    stage."""
+    from marl_sortingenv_tpu_torch.core import fastb as TB
+    from marl_sortingenv_tpu_torch.learn import ppo
+    (sort_agent,) = load_agents(["sort"], dev)
+    gen = torch.Generator(device="cpu").manual_seed(42)
+    held = {}
+    for name, variant, kernel in (("sort", "sort", "step_mono"),
+                                  ("press", "press", "sort_material"),
+                                  ("mono", "external", "step_mono")):
+        spec = ppo.spec_for(name, engine="fastb")
+        sp = sort_agent if name == "press" else None
+        step_fn = spec.step_fn(sp, True)
+        plain = TB.eager_step(variant, True, sp)
+        runs = (("rollout", 16, cfg.max_steps + 6,
+                 spec.batched_autoreset_step(cfg, step_fn, True),
+                 TB.with_autoreset(cfg, plain)),
+                ("evaluate", 10, cfg.max_steps,
+                 spec.batched_step(cfg, step_fn),
+                 spec.batched_step(cfg, plain)))
+        want = {k: int(k == kernel) for k in launch_counts()}
+        for what, n, steps, step_k, step_p in runs:
+            hold = [*range(12), *range(steps - 12, steps)]
+            st_k = spec.reset_batch(cfg, n, 42, device=dev)
+            ends = 0
+            for t in range(steps):
+                a = torch.randint(0, spec.n_actions, (n,), generator=gen,
+                                  dtype=torch.int32).to(dev)
+                if t in hold and t - 1 not in hold:
+                    st_p = st_k
+                before = launch_counts()
+                st_k, o_k = step_k(st_k, a)
+                d = {k: v - before[k] for k, v in launch_counts().items()}
+                if d != want:
+                    raise AssertionError(f"phase 9: {name} {what} step {t} "
+                                         f"at {n} envs: launches {d}")
+                ends += int(o_k.terminated.sum())
+                if t in hold:
+                    st_p, o_p = no_launch(step_p, st_p, a)
+                    states_equal(st_k, st_p, (o_k, o_p),
+                                 f"phase 9: {name} {what} at {n} envs, "
+                                 f"step {t}")
+            if ends < n:
+                raise AssertionError(f"phase 9: {name} {what} at {n} envs: "
+                                     f"{ends} episode ends, fewer than envs")
+            held[f"{name} {what}"] = {"envs": n, "steps": steps,
+                                      "held": [hold[0], hold[11], hold[12],
+                                               hold[-1]]}
+    return held
+
+
+def phase_flow(dev) -> tuple:
+    """Phase 9: ``run_training_flow`` at the CLI's defaults (16 envs, 10
+    bench seeds x 200 steps; the timesteps cut to FLOW_TIMESTEPS), each
+    stage and the closing benchmark timed and their kernel launches
+    counted apart.  Returns (report, training launches, benchmark
+    launches)."""
+    from marl_sortingenv_tpu_torch.config.config import load_config
+    from marl_sortingenv_tpu_torch.eval import harness
+    from marl_sortingenv_tpu_torch.learn import trainer
+    # as main.run_sim builds it from the CLI's defaults
+    cfg = load_config(None, max_steps=200, noise_sorting=0.0, balesize=200)
+    stages, bench = {}, {}
+    real_train, real_bench = trainer.train_agent, harness.run_model_benchmark
+
+    def timed_train(cfg, variant, *args, **kw):
+        w0 = time.perf_counter()
+        res = real_train(cfg, variant, *args, **kw)
+        torch.cuda.synchronize()
+        stages[variant] = (time.perf_counter() - w0, res,
+                           kw.get("sort_params"))
+        return res
+
+    def counted_bench(*args, **kw):
+        bench["training_launches"] = launch_counts()
+        bench["kw"] = kw
+        zero_counts()
+        w0 = time.perf_counter()
+        out = real_bench(*args, **kw)
+        bench["wall_s"] = time.perf_counter() - w0
+        bench["launches"] = launch_counts()
+        return out
+
+    # the flow's kernels against their plain versions first, at its widths
+    t0 = time.perf_counter()
+    held = flow_steps_ab(cfg, dev)
+    print(f"phase 9: each stage's step as train_agent builds it, kernel "
+          f"path == plain path, bitwise in every leaf and output, in the "
+          f"first 12 and the last 12 of the rollout's autoreset steps at 16 "
+          f"envs x {cfg.max_steps + 6} (across the episode's end) and of "
+          f"evaluate's steps at 10 envs x {cfg.max_steps}; kernel 1 (sort, "
+          f"mono) or kernel 2 (press, the tuned sort agent frozen) once per "
+          f"step ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    models_dir = ROOT / "build" / "chip_smoke_models"
+    zero_counts()
+    trainer.train_agent, harness.run_model_benchmark = (timed_train,
+                                                        counted_bench)
+    t0 = time.perf_counter()
+    try:
+        flow = trainer.run_training_flow(
+            cfg, use_action_masking=True, total_timesteps=FLOW_TIMESTEPS,
+            n_envs=16, seed=42, engine="fastb", bench_seeds=10,
+            steps_test=200, models_dir=str(models_dir), device=dev)
+    finally:
+        trainer.train_agent, harness.run_model_benchmark = (real_train,
+                                                            real_bench)
+    wall = time.perf_counter() - t0
+    if set(flow) != {"sort", "press", "mono", "benchmark",
+                     "benchmark_rows"} or list(stages) != ["sort", "press",
+                                                           "mono"]:
+        raise AssertionError(f"the flow: keys {set(flow)}, stages "
+                             f"{list(stages)}")
+    report = {"cfg": "load_config(None, max_steps=200, noise_sorting=0.0, "
+                     "balesize=200)", "n_envs": 16,
+              "total_timesteps": FLOW_TIMESTEPS, "wall_s": wall,
+              "kernel_vs_plain_held": held}
+    for name, (secs, res, _) in stages.items():
+        if flow[name] is not res or len(res.history) != 2 or not all(
+                np.isfinite(h["loss"]) for h in res.history) or not \
+                np.isfinite(res.final_eval_mean) or any(
+                p.device.type != dev.type for p in res.params.parameters()):
+            raise AssertionError(f"flow stage {name}: {res.history}, "
+                                 f"{res.final_eval_mean}")
+        report[name] = {"wall_s": secs, "final_eval_mean": res.final_eval_mean,
+                        "final_eval_std": res.final_eval_std,
+                        "losses": [h["loss"] for h in res.history]}
+        print(f"phase 9: run_training_flow stage {name}: 2 iterations at 16 "
+              f"envs, final eval {res.final_eval_mean:.6f} +- "
+              f"{res.final_eval_std:.6f}, {secs:.1f} s", flush=True)
+    if stages["press"][2] is not flow["sort"].params or any(
+            bench["kw"][f"{k}_params"] is not flow[k].params
+            for k in ("sort", "press", "mono")):
+        raise AssertionError("the flow's stages are not wired as JAX's")
+    for prefix in ("Sorting", "Pressing", "Monolith"):
+        if not (models_dir / f"PPO_{prefix}_Masked_{FLOW_TIMESTEPS}.npz"
+                ).is_file():
+            raise AssertionError(f"the flow saved no PPO_{prefix}_Masked")
+    train_l, bench_l = bench["training_launches"], bench["launches"]
+    if train_l["step_mono"] <= 0 or train_l["sort_material"] <= 0 or any(
+            bench_l.values()):
+        raise AssertionError(f"the flow launched {train_l} in training and "
+                             f"{bench_l} in its benchmark")
+    # the means == the reference's; the stds == np.std of the JAX
+    # package's per-seed table (the reference's file holds stds that differ
+    # from that by a few ulp: it was written under another numpy)
+    ref = json.loads(REF_BENCH_JSON.read_text())["masked"]
+    for key in ("Random", "Rule-Based"):
+        got = flow["benchmark"][key]
+        want = {"mean": ref[key]["mean"],
+                "std": float(np.std(BENCH_PARITY_JAX[key]))}
+        if got != want:
+            raise AssertionError(f"the flow's benchmark {key}: {got} != "
+                                 f"{want}")
+        report.setdefault("std_ulps_from_reference_file", {})[key] = int(
+            abs(np.float64(got["std"]).view(np.int64)
+                - np.float64(ref[key]["std"]).view(np.int64)))
+    report["benchmark"] = {"wall_s": bench["wall_s"],
+                           "summary": flow["benchmark"],
+                           "launches": bench_l}
+    report["training_launches"] = train_l
+    print(f"phase 9: run_training_flow's closing benchmark, 10 seeds x 200 "
+          f"steps on the parity engine: Random {flow['benchmark']['Random']}"
+          f", Rule-Based {flow['benchmark']['Rule-Based']}: the means == "
+          f"artifacts/benchmark_results.json, the stds == np.std of the JAX "
+          f"table ({report['std_ulps_from_reference_file']} ulp from the "
+          f"file's); no kernel launched; "
+          f"{bench['wall_s']:.1f} s.  Training launched {train_l}; the "
+          f"flow took {wall:.1f} s", flush=True)
+    return report, train_l, bench_l
+
+
+def env_jobs():
+    """The runs of phase 17: (tag, env class, action source, masked,
+    agents as (set_agents keyword, tuned agent), check_overflow)."""
+    both = (("sort_agent", "sort"), ("press_agent", "press"))
+    mono = (("mono_agent", "mono"),)
+    return [
+        ("Env_1_Sorting actions", "Env_1_Sorting", "action", True, (),
+         False),
+        ("Env_2_Pressing rule", "Env_2_Pressing", "action", True, (), False),
+        ("Env_2_Pressing tuned sort agent", "Env_2_Pressing", "action", True,
+         (("sort_agent", "sort"),), False),
+        ("Env_2_Pressing idle check_overflow", "Env_2_Pressing", "idle",
+         True, (), True)] + [
+        (f"Env_3_Monolith {src} {'masked' if m else 'unmasked'}",
+         "Env_3_Monolith", src, m, agents, False)
+        for src, agents in (("action", ()), ("random", ()),
+                            ("model", both), ("agent", mono))
+        for m in (True, False)] + [
+        ("Env_3_Monolith rule_based", "Env_3_Monolith", "rule_based", True,
+         (), False)]
+
+
+def env_step(env, src, masked, over, mask, rng):
+    """One Gym step from the action source: an action drawn from ``rng``
+    among the valid ones when masked, 0 for 'idle', or a mode."""
+    kw = {"use_action_masking": masked, "check_overflow": over}
+    if src in ("action", "idle"):
+        valid = (np.flatnonzero(mask) if masked
+                 else np.arange(env.action_space.n))
+        a = 0 if src == "idle" else int(valid[rng.integers(len(valid))])
+        return env.step(a, **kw)
+    return env.step(mode=None if src == "agent" else src, **kw)
+
+
+def env_end(env) -> dict:
+    """What an episode's end leaves: the logs, the accessors and the
+    print_checksum lines."""
+    import contextlib
+    import copy
+    import io
+    from marl_sortingenv_tpu_torch.core import state as PSt
+    from marl_sortingenv_tpu_torch.eval import episode_log as PEL
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        PEL.print_checksum(PSt.env_at(env.state), seed=env.seed_value,
+                           cfg=env.config)
+    return {"reward_data": copy.deepcopy(env.reward_data),
+            "press_log": list(env.press_actions_per_timestep),
+            "belt_counts": [x.tolist() for x in env._belt_counts_log],
+            "press_timer": [x.tolist() for x in env._press_timer_log],
+            **{k: getattr(env, k) for k in ENV_ACCESSORS},
+            "overflow": env.detect_overflow(), "checksum": buf.getvalue()}
+
+
+def env_trajectory(job, device: str):
+    """A worker process: the job's Gym loop on ``device`` for ENV_STEPS
+    steps at max_steps ENV_MAX_STEPS, an unseeded reset() at each
+    episode's end.  Returns (tag, per step (mask, the 5-tuple), per step
+    the argmax near-tie flags, the episode ends, launches, host syncs,
+    seconds)."""
+    from marl_sortingenv_tpu_torch import envs as PE
+    from marl_sortingenv_tpu_torch.core import rng as PR
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag, cls_name, src, masked, agents, over = job
+    dev = torch.device(device)
+    env = getattr(PE, cls_name)(max_steps=ENV_MAX_STEPS, seed=ENV_SEED,
+                                device=dev)
+    pols = load_agents([a for _, a in agents], dev)
+    env.set_agents(**{k: p for (k, _), p in zip(agents, pols)})
+    rng = np.random.default_rng(ENV_SEED)
+    log, recs, flags, ends = ParityTieLog().install(), [], [], []
+    before, syncs = launch_counts(), PR.HOST_SYNCS
+    t0 = time.perf_counter()
+    try:
+        env.reset(seed=ENV_SEED)
+        for _ in range(ENV_STEPS):
+            mask = env.action_masks()
+            log.begin(1, dev)
+            out = env_step(env, src, masked, over, mask, rng)
+            flags.append(log.end())
+            recs.append((mask, out))
+            if out[2]:
+                ends.append(env_end(env))
+                env.reset()
+    finally:
+        log.remove()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    syncs = PR.HOST_SYNCS - syncs
+    ends.append(env_end(env))
+    launched = {k: v - before[k] for k, v in launch_counts().items()}
+    return (tag, recs, torch.cat(flags).cpu().tolist(), ends, launched,
+            syncs, secs)
+
+
+def env_cpu(job):
+    return env_trajectory(job, "cpu")
+
+
+def env_card(job):
+    return env_trajectory(job, "cuda")
+
+
+def match_env(tag, res_g, res_c):
+    """Hold the card's Gym loop to the CPU's: per step the mask, obs,
+    reward, terminated, truncated and info equal; a differing action must
+    be an argmax near-tie on either side, and ends the comparison.  The
+    episode ends before it (logs, accessors, checksum lines) equal.
+    Returns the step of a near-tie split, or None."""
+    _, recs_g, ties_g, ends_g = res_g[:4]
+    _, recs_c, ties_c, ends_c = res_c[:4]
+    n_ends = 0
+    for t, ((mg, og), (mc, oc)) in enumerate(zip(recs_g, recs_c)):
+        if not np.array_equal(mg, mc):
+            raise AssertionError(f"{tag}: step {t}: masks differ")
+        if og[4]["action"] != oc[4]["action"]:
+            if not (ties_g[t] or ties_c[t]):
+                raise AssertionError(
+                    f"{tag}: step {t}: action {og[4]['action']} on the "
+                    f"card, {oc[4]['action']} on the CPU, and no near-tie")
+            break
+        if not (og[0].dtype == oc[0].dtype == np.float32
+                and np.array_equal(og[0], oc[0]) and og[1:] == oc[1:]
+                and type(og[1]) is type(oc[1]) is float):
+            raise AssertionError(f"{tag}: step {t}: the card's step "
+                                 f"{og[1:]} != the CPU's {oc[1:]}")
+        n_ends += bool(og[2])
+    else:
+        t, n_ends = None, len(ends_g)
+    if ends_g[:n_ends] != ends_c[:n_ends]:
+        raise AssertionError(f"{tag}: the episode logs, accessors or "
+                             "checksum lines differ")
+    return t, n_ends
+
+
+def watch_ties(model) -> list:
+    """Per call of ``model.predict_deterministic`` from then on, whether
+    the two largest of its (masked) logits lay within ARGMAX_RTOL."""
+    from marl_sortingenv_tpu_torch.models import mlp
+    real, flags = model.predict_deterministic, []
+
+    def predict(obs, mask=None):
+        logits = model.policy_logits(obs)
+        if mask is not None:
+            logits = mlp.masked_logits(logits, mask)
+        flags.append(bool(argmax_near_tie(logits)))
+        return real(obs, mask)
+    model.predict_deterministic = predict
+    return flags
+
+
+def phase_envs(dev) -> dict:
+    """Phase 17: the Gymnasium drop-in envs on the card against the CPU.
+    Every job of ``env_jobs`` runs its Gym loop in worker processes (the
+    CPU side in three, the card's in three) and the two are compared;
+    then, alone on the host, one loop per class is timed on the card and
+    profiled, ``check_env`` runs on each class and ``testing.test_env`` on
+    the monolith (50 steps of 200, so that the episode does not end and
+    draw its figure: the card's machine has no matplotlib)."""
+    from concurrent.futures import ProcessPoolExecutor
+    import importlib.util
+    import multiprocessing as mp
+    from marl_sortingenv_tpu_torch import envs as PE
+    from marl_sortingenv_tpu_torch import testing as PT
+    from marl_sortingenv_tpu_torch.core import rng as PR
+    from marl_sortingenv_tpu_torch.utils.env_checker import check_env
+    t0 = time.perf_counter()
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in CARD_PACKAGES}
+    rep = {"packages_found": found, "packages_assumed": CARD_PACKAGES,
+           "gymnasium_in_envs": PE._GYM, "runs": {}}
+    print(f"phase 17: find_spec on this machine {found}; the script "
+          f"assumes {CARD_PACKAGES}; envs.py uses "
+          f"{'gymnasium' if PE._GYM else 'its shim'}", flush=True)
+    jobs = env_jobs()
+    spawn = mp.get_context("spawn")
+    with ProcessPoolExecutor(3, mp_context=spawn) as cpu_pool, \
+            ProcessPoolExecutor(3, mp_context=spawn) as card_pool:
+        cpu_futures = [cpu_pool.submit(env_cpu, job) for job in jobs]
+        card_futures = [card_pool.submit(env_card, job) for job in jobs]
+        for job, card_fut, cpu_fut in zip(jobs, card_futures, cpu_futures):
+            res_g, res_c = card_fut.result(), cpu_fut.result()
+            tag = job[0]
+            if any(res_g[4].values()) or any(res_c[4].values()):
+                raise AssertionError(f"{tag} launched {res_g[4]}")
+            split, n_ends = match_env(tag, res_g, res_c)
+            syncs, secs = res_g[5], res_g[6]
+            rep["runs"][tag] = {
+                "near_tie_split_step": split, "episode_ends_compared": n_ends,
+                "card_ms_per_gym_step": secs / ENV_STEPS * 1e3,
+                "host_syncs_per_gym_step": syncs / ENV_STEPS,
+                "cpu_ms_per_gym_step": res_c[6] / ENV_STEPS * 1e3}
+            print(f"phase 17: {tag}: card == CPU, every step's obs, reward, "
+                  f"terminated, info and mask over {ENV_STEPS} steps (max "
+                  f"{ENV_MAX_STEPS}), {n_ends} episode ends' reward_data, "
+                  f"accessors and checksum lines"
+                  + (f"; an argmax near-tie split at step {split}"
+                     if split is not None else "")
+                  + f"; card {secs / ENV_STEPS * 1e3:.2f} ms per Gym step "
+                  f"(beside 5 worker processes), {syncs / ENV_STEPS:.2f} "
+                  f"host syncs per Gym step; no kernel launched", flush=True)
+    t_workers = time.perf_counter() - t0
+
+    # alone on the host: one Gym loop per class, timed and profiled
+    zero_counts()
+    rep["alone"] = {}
+    for cls_name, src in (("Env_1_Sorting", "action"),
+                          ("Env_2_Pressing", "action"),
+                          ("Env_3_Monolith", "rule_based")):
+        env = getattr(PE, cls_name)(max_steps=ENV_MAX_STEPS, seed=ENV_SEED,
+                                    device=dev)
+        env.reset(seed=ENV_SEED)
+        rng = np.random.default_rng(ENV_SEED)
+
+        def loop(steps, env=env, src=src, rng=rng):
+            for _ in range(steps):
+                if env_step(env, src, True, False, env.action_masks(),
+                            rng)[2]:
+                    env.reset()
+        loop(10)                                            # warm-up
+        torch.cuda.synchronize()
+        syncs, w0 = PR.HOST_SYNCS, time.perf_counter()
+        loop(ENV_TIMED_STEPS)
+        torch.cuda.synchronize()
+        wall, syncs = time.perf_counter() - w0, PR.HOST_SYNCS - syncs
+        _, prof_us, busy, by_kernel, n_kern = profile_busy(lambda: loop(5))
+        rep["alone"][cls_name] = {
+            "source": src, "ms_per_gym_step": wall / ENV_TIMED_STEPS * 1e3,
+            "host_syncs_per_gym_step": syncs / ENV_TIMED_STEPS,
+            "timed_steps": ENV_TIMED_STEPS,
+            "device_kernels_per_gym_step": n_kern / 5,
+            "device_busy_share": busy, "profiled_steps": 5,
+            "profiled_wall_ms": prof_us / 1e3}
+        print(f"phase 17: {cls_name} ({src}) alone on the card: "
+              f"{wall / ENV_TIMED_STEPS * 1e3:.2f} ms per Gym step over "
+              f"{ENV_TIMED_STEPS} steps, {syncs / ENV_TIMED_STEPS:.2f} host "
+              f"syncs per Gym step; {n_kern / 5:.1f} device kernels per "
+              f"step, device busy {busy:.3f} over 5 profiled steps",
+              flush=True)
+
+    # the env checker on each class, and test_env, on the card
+    for cls in (PE.Env_1_Sorting, PE.Env_2_Pressing, PE.Env_3_Monolith):
+        check_env(cls(max_steps=ENV_MAX_STEPS, seed=1, device=dev),
+                  n_steps=20)
+    runs, ties = [], []
+    for d in (dev, torch.device("cpu")):
+        (mono,) = load_agents(["mono"], d)
+        ties.append(watch_ties(mono))
+        env = PE.Env_3_Monolith(max_steps=ENV_MAX_STEPS, seed=ENV_SEED,
+                                device=d)
+        runs.append(PT.test_env(env, steps=50, seed=ENV_SEED, mode="model",
+                                model=mono, stats=False))
+    split = next((t for t, (a, b) in enumerate(zip(runs[0][1], runs[1][1]))
+                  if a != b), None)
+    if len(runs[0][1]) != 50 or (split is None and runs[0] != runs[1]) or (
+            split is not None and not (ties[0][split] or ties[1][split])):
+        raise AssertionError(f"test_env on the card {runs[0]} != on the "
+                             f"CPU {runs[1]}")
+    if any(launch_counts().values()):
+        raise AssertionError(f"phase 17 launched {launch_counts()}")
+    rep["test_env"] = {"total": runs[0][0], "steps": 50}
+    rep["seconds"] = time.perf_counter() - t0
+    print(f"phase 17: check_env passes on the three classes on the card; "
+          f"testing.test_env (mono agent, 50 steps) on the card == on the "
+          f"CPU, total {runs[0][0]!r}; no kernel launched; "
+          f"{rep['seconds']:.1f} s ({t_workers:.1f} s with the workers)",
+          flush=True)
+    return rep
+
+
+# ---- phases 3 and 7: kernels 1 and 2 against their plain versions -------
+# Phase 9's flow steps 16 envs (the CLI's default), the other main paths
+# 4096: phases 3 and 7 hold the kernels at both widths.
+AB_WIDTHS = (4096, 16)
+KERNEL1_CASES = (("rule", True), ("external", True), ("external", False),
+                 ("sort", True), ("press", True), ("press", False))
+
+
+def kernel1_ab(cfgs, gen, dev, n: int) -> float:
+    """Phase 3 at ``n`` envs: the step kernel against ``step_mono_plain``,
+    bitwise in every leaf and output, for each variant of KERNEL1_CASES,
+    12 autoreset steps across an episode's end on each config (rule steps
+    by the kernel up to 6 steps before the end first, so that the A/B
+    starts with a filled event log).  Returns the largest reward
+    difference."""
+    from marl_sortingenv_tpu_torch.core import fastb as TB
+    from marl_sortingenv_tpu_torch.ops import step_cuda
+    n_act = {"rule": 22, "external": 22, "sort": 2, "press": 11}
+    max_err = 0.0
+    for cname, cfg in cfgs.items():
+        st0 = TB.reset_batch(cfg, 9, n, device=dev)
+        for _ in range(cfg.max_steps - 6):
+            st0, _ = step_cuda.step_mono_kernel(cfg, st0, None,
+                                                variant="rule",
+                                                autoreset=True)
+        if int(st0.ev_cnt.max()) <= 0:
+            raise AssertionError(f"{cname} at {n} envs: no press completed "
+                                 "before the A/B")
+        for variant, masked in KERNEL1_CASES:
+            st_k = st_p = st0
+            for t in range(12):
+                a = torch.randint(0, n_act[variant], (n,), generator=gen,
+                                  dtype=torch.int32).to(dev)
+                a = None if variant == "rule" else a
+                st_k, o_k = step_cuda.step_mono_kernel(
+                    cfg, st_k, a, variant=variant, masked=masked,
+                    autoreset=True)
+                st_p, o_p = no_launch(
+                    step_cuda.step_mono_plain, cfg, st_p, a,
+                    variant=variant, masked=masked, autoreset=True)
+                states_equal(st_k, st_p, (o_k, o_p),
+                             f"{cname} {variant} masked={masked} at {n} "
+                             f"envs, step {t}")
+                max_err = max(max_err, float(
+                    (o_k.reward - o_p.reward).abs().max()))
+    return max_err
+
+
+def frozen_press_ab(cfg, sort_agent, gen, dev, n: int) -> None:
+    """Phase 7 at ``n`` envs: the press step with the frozen sort agent,
+    its sorting core on kernel 2, against the plain path, bitwise in every
+    leaf and output, 24 masked and 24 unmasked autoreset steps from
+    max_steps - 12 rule steps on, across the reset; kernel 2 once per step,
+    kernel 1 never."""
+    from marl_sortingenv_tpu_torch.core import fastb as TB
+    from marl_sortingenv_tpu_torch.ops import step_cuda
+    st0 = TB.reset_batch(cfg, 17, n, device=dev)
+    for _ in range(cfg.max_steps - 12):
+        st0, _ = step_cuda.step_mono_kernel(cfg, st0, None, variant="rule",
+                                            autoreset=True)
+    for masked in (True, False):
+        step_k = TB.with_autoreset(cfg, lambda c, s, a, m=masked: TB.step_press(
+            c, s, a, sort_agent, m))
+        step_p = TB.with_autoreset(cfg, TB.eager_step("press", masked,
+                                                      sort_agent))
+        st_k = st_p = st0
+        crossed = False
+        for t in range(24):
+            a = torch.randint(0, 11, (n,), generator=gen,
+                              dtype=torch.int32).to(dev)
+            before = launch_counts()
+            st_k, o_k = step_k(st_k, a)
+            d = {k: v - before[k] for k, v in launch_counts().items()}
+            if d != {"step_mono": 0, "sort_material": 1,
+                     "sort_redistribute": 0}:
+                raise AssertionError(f"frozen-sort press step {t} at {n} "
+                                     f"envs: launches {d}")
+            st_p, o_p = no_launch(step_p, st_p, a)
+            states_equal(st_k, st_p, (o_k, o_p),
+                         f"frozen-sort press masked={masked} at {n} envs, "
+                         f"step {t}")
+            crossed |= bool(o_k.terminated.any())
+        if not crossed:
+            raise AssertionError(f"the frozen-sort A/B at {n} envs crossed "
+                                 "no reset")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1278,7 +1857,7 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     from marl_sortingenv_tpu_torch.config.config import load_config
     from marl_sortingenv_tpu_torch.core import fastb as TB
-    from marl_sortingenv_tpu_torch.learn import ppo, trainer
+    from marl_sortingenv_tpu_torch.learn import ppo
     from marl_sortingenv_tpu_torch.models import mlp
     from marl_sortingenv_tpu_torch.ops import (_build, mvhg_cuda, sort_cuda,
                                                step_cuda)
@@ -1297,9 +1876,6 @@ def main() -> int:
 
     # ---- 3. kernel vs plain on the card ----------------------------------
     t0 = time.perf_counter()
-    cases = [("rule", True), ("external", True), ("external", False),
-             ("sort", True), ("press", True), ("press", False)]
-    n_act = {"rule": 22, "external": 22, "sort": 2, "press": 11}
     cfgs = {
         "default": load_config(bale_mode="events"),
         "noise_0.05": load_config(bale_mode="events", noise_sorting=0.05),
@@ -1307,38 +1883,12 @@ def main() -> int:
                                         press_time_1=1, press_time_2=2,
                                         balesize=16),
     }
-    max_err = 0.0
     gen = torch.Generator(device="cpu").manual_seed(31)
-    for cname, cfg in cfgs.items():
-        # rule steps by the kernel up to 6 steps before the episode's end,
-        # so the A/B starts with a filled event log and crosses a reset
-        st0 = TB.reset_batch(cfg, 9, 4096, device=dev)
-        for _ in range(cfg.max_steps - 6):
-            st0, _ = step_cuda.step_mono_kernel(cfg, st0, None,
-                                                variant="rule",
-                                                autoreset=True)
-        if int(st0.ev_cnt.max()) <= 0:
-            raise AssertionError(f"{cname}: no press completed before the A/B")
-        for variant, masked in cases:
-            st_k = st_p = st0
-            for t in range(12):
-                a = torch.randint(0, n_act[variant], (4096,), generator=gen,
-                                  dtype=torch.int32).to(dev)
-                a = None if variant == "rule" else a
-                st_k, o_k = step_cuda.step_mono_kernel(
-                    cfg, st_k, a, variant=variant, masked=masked,
-                    autoreset=True)
-                st_p, o_p = no_launch(
-                    step_cuda.step_mono_plain, cfg, st_p, a,
-                    variant=variant, masked=masked, autoreset=True)
-                states_equal(st_k, st_p, (o_k, o_p),
-                             f"{cname} {variant} masked={masked} step {t}")
-                max_err = max(max_err, float(
-                    (o_k.reward - o_p.reward).abs().max()))
+    max_err = max(kernel1_ab(cfgs, gen, dev, n) for n in AB_WIDTHS)
     torch.cuda.synchronize()
     print(f"phase 3: kernel == plain on the card, bitwise, 3 configs x "
-          f"{len(cases)} variants x 12 steps at 4096 envs, across an "
-          f"episode's end; the plain version launched no kernel "
+          f"{len(KERNEL1_CASES)} variants x 12 steps at {AB_WIDTHS} envs, "
+          f"across an episode's end; the plain version launched no kernel "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ---- 4. kernel vs the CPU path ---------------------------------------
@@ -1569,36 +2119,12 @@ def main() -> int:
     # ---- 7. the frozen-sort press step on the card -----------------------
     t0 = time.perf_counter()
     sort_agent = mlp.load_npz(str(SORT_NPZ), device=dev).requires_grad_(False)
-    st0 = TB.reset_batch(cfg, 17, 4096, device=dev)
-    for _ in range(cfg.max_steps - 12):
-        st0, _ = step_cuda.step_mono_kernel(cfg, st0, None, variant="rule",
-                                            autoreset=True)
-    for masked in (True, False):
-        step_k = TB.with_autoreset(cfg, lambda c, s, a, m=masked: TB.step_press(
-            c, s, a, sort_agent, m))
-        step_p = TB.with_autoreset(cfg, TB.eager_step("press", masked,
-                                                      sort_agent))
-        st_k = st_p = st0
-        crossed = False
-        for t in range(24):
-            a = torch.randint(0, 11, (4096,), generator=gen,
-                              dtype=torch.int32).to(dev)
-            before = launch_counts()
-            st_k, o_k = step_k(st_k, a)
-            d = {k: v - before[k] for k, v in launch_counts().items()}
-            if d != {"step_mono": 0, "sort_material": 1,
-                     "sort_redistribute": 0}:
-                raise AssertionError(f"frozen-sort press step {t}: launches {d}")
-            st_p, o_p = no_launch(step_p, st_p, a)
-            states_equal(st_k, st_p, (o_k, o_p),
-                         f"frozen-sort press masked={masked} step {t}")
-            crossed |= bool(o_k.terminated.any())
-        if not crossed:
-            raise AssertionError("the frozen-sort A/B crossed no reset")
+    for n in AB_WIDTHS:
+        frozen_press_ab(cfg, sort_agent, gen, dev, n)
     torch.cuda.synchronize()
     print(f"phase 7: frozen-sort press step (tuned sort agent), kernel-2 path "
           f"== plain path, bitwise in every leaf and output, 24 masked and 24 "
-          f"unmasked autoreset steps at 4096 envs from step "
+          f"unmasked autoreset steps at {AB_WIDTHS} envs from step "
           f"{cfg.max_steps - 12}, across the reset; kernel 2 once per step, "
           f"kernel 1 never ({time.perf_counter() - t0:.1f} s)", flush=True)
 
@@ -1676,42 +2202,12 @@ def main() -> int:
                           for k, t in by_kernel[:4])
               + f" ({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    # ---- 9. the trainer's flow: sort -> press (frozen sort) -> mono -------
-    flow_total = 2 * pcfg.n_steps * n_train
-    report["flow"] = {}
-    sort_params = None
-    models_dir = str(ROOT / "build" / "chip_smoke_models")
-    zero_counts()
-    for name in ("sort", "press", "mono"):
-        t0 = time.perf_counter()
-        res = trainer.train_agent(
-            cfg, name, flow_total, n_envs=n_train,
-            sort_params=sort_params if name == "press" else None,
-            eval_freq=10 * flow_total, eval_envs=n_train,
-            models_dir=models_dir, save_prefix=f"PPO_{name}_chip",
-            pcfg=pcfg, verbose=False, device=dev)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        if name == "sort":
-            sort_params = res.params
-        if len(res.history) != 2 or not all(
-                np.isfinite(h["loss"]) for h in res.history) or not \
-                np.isfinite(res.final_eval_mean):
-            raise AssertionError(f"flow stage {name}: {res.history}, "
-                                 f"{res.final_eval_mean}")
-        report["flow"][name] = {
-            "seconds": wall, "final_eval_mean": res.final_eval_mean,
-            "final_eval_std": res.final_eval_std,
-            "losses": [h["loss"] for h in res.history]}
-        print(f"phase 9: train_agent {name} at {n_train} envs, 2 iterations, "
-              f"final eval over {n_train} envs x {cfg.max_steps} steps: "
-              f"{res.final_eval_mean:.6f} +- {res.final_eval_std:.6f}, "
-              f"{wall:.1f} s", flush=True)
-    counts = launch_counts()
-    if counts["step_mono"] <= 0 or counts["sort_material"] <= 0:
-        raise AssertionError(f"the flow launched {counts}")
-    report["flow"]["launches"] = counts
-    add_launches(main_launches, by_path, "train_agent flow", counts)
+    # ---- 9. the flow: run_training_flow at the CLI's defaults ------------
+    report["flow"], train_l, bench_l = phase_flow(dev)
+    add_launches(main_launches, by_path, "run_training_flow, training",
+                 train_l)
+    add_launches(main_launches, by_path,
+                 "run_training_flow, closing benchmark", bench_l)
 
     # ---- 10. the sort kernels alone, beside their bounds -----------------
     support = TB._support_for(cfg)
@@ -1731,6 +2227,8 @@ def main() -> int:
         if n == 4096:
             add_launches(main_launches, by_path, "kernel 3's own phase",
                          launch_counts())
+        out_names = {"sort_material": ("leftover", "true", "false", "keys"),
+                     "sort_redistribute": ("leftover", "true", "false")}
         cases_k = {
             "sort_material": (
                 lambda: sort_cuda.sort_material_kernel(counts_, acc, keys,
@@ -1746,6 +2244,8 @@ def main() -> int:
                 redistribute_bound(support, n),
                 mvhg_cuda.lanes_for(support, n))}
         for kname, (launch, plain, b, design) in cases_k.items():
+            _outputs_equal(f"phase 10: {kname} at {n} envs",
+                           out_names[kname], launch(), plain())
             wall_ms = cuda_ms(launch, 200)
             dev_us = profile_device_us(launch, 100, f"{kname}_kernel")
             plain_ms = cuda_ms(plain, 20)
@@ -1986,6 +2486,10 @@ def main() -> int:
     report["parity"] = phase_parity(dev, agents, pcfg, n_train,
                                     parity_jobs(PARITY_N, PARITY_STEPS))
     add_launches(main_launches, by_path, "parity engine (16a-c)", {})
+
+    # ---- 17. the Gymnasium drop-in envs, card against CPU -----------------
+    report["envs"] = phase_envs(dev)
+    add_launches(main_launches, by_path, "envs (17)", {})
 
     report["main_path_launches"] = main_launches
     report["launches_by_path"] = by_path

@@ -70,6 +70,13 @@ def host_ints(x: torch.Tensor) -> list:
     return x.tolist()
 
 
+def host_array(x: torch.Tensor) -> np.ndarray:
+    """``x`` as a numpy array on the host, in one counted read."""
+    global HOST_SYNCS
+    HOST_SYNCS += 1
+    return x.cpu().numpy()
+
+
 def _signed(v: int) -> int:
     """A u64 held in Python as the int64 with its bit pattern."""
     v &= _MASK64

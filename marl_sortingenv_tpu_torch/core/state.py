@@ -161,6 +161,13 @@ def named_leaves(st, prefix=""):
     return out
 
 
+def env_at(st, i: int = 0):
+    """The state of env ``i`` alone, each leaf without the env axis (the
+    shape of the JAX package's unbatched state), on the same device."""
+    return type(st)(*(env_at(x, i) if isinstance(x, tuple) else x[i]
+                      for x in st))
+
+
 def to_numpy(st) -> list:
     """The leaves of ``st`` as numpy arrays with the JAX package's dtypes,
     in its pytree order (``jax.tree.leaves`` of its state)."""

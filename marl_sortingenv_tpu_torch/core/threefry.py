@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
+
 _MASK = 0xFFFFFFFF
 _ROT_EVEN = (13, 15, 26, 6)
 _ROT_ODD = (17, 29, 16, 24)
@@ -65,12 +67,12 @@ def _blocks(keys: torch.Tensor, num: int):
     return threefry2x32(k0, k1, torch.zeros_like(ctr), ctr)
 
 
-def prng_key(seed: int, device="cpu") -> torch.Tensor:
+def prng_key(seed: int, device="cuda") -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for 0 <= seed < 2**64: int32[2]."""
     if seed < 0 or seed >= 2**64:
         raise ValueError(f"seed must be in [0, 2**64), got {seed}")
     k = torch.tensor([seed >> 32, seed & _MASK], dtype=torch.int64,
-                     device=device)
+                     device=resolve_device(device))
     return _i32(k)
 
 
@@ -164,14 +166,15 @@ def split_key(key, num: int = 2) -> torch.Tensor:
     return _i32(torch.tensor(rows, dtype=torch.int64))
 
 
-def random_bits(key, shape, device="cpu") -> torch.Tensor:
+def random_bits(key, shape, device="cuda") -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (32-bit) of one key, as int64 u32
     values: word i of the flat shape is ``o0 ^ o1`` of the block with the
     64-bit counter (i >> 32, i & 0xffffffff), the partitionable scheme."""
     k0, k1 = key_words(key)
     shape = tuple(shape)
     size = int(np.prod(shape, dtype=np.int64)) if shape else 1
-    idx = torch.arange(size, dtype=torch.int64, device=device)
+    idx = torch.arange(size, dtype=torch.int64,
+                       device=resolve_device(device))
     o0, o1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK)
     return (o0 ^ o1).reshape(shape)
 
@@ -214,12 +217,13 @@ def vcategorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(vperturbed(keys, logits), dim=-1)
 
 
-def normal(key, shape, device="cpu") -> torch.Tensor:
+def normal(key, shape, device="cuda") -> torch.Tensor:
     """``jax.random.normal(key, shape, float32)`` of one key: a uniform on
     ``[nextafter(-1, 0), 1)`` (``u01 * span + lo``, the mul-add rounded
     once, then ``max(lo, .)``), mapped by ``sqrt(2) * erfinv``.
     ``torch.erfinv`` and XLA's ``erf_inv`` round differently, so the values
     agree with JAX to a few ulp, not bitwise."""
+    device = resolve_device(device)
     u01 = bits_to_unit(random_bits(key, shape, device))
     lo = torch.tensor(np.nextafter(np.float32(-1.0), np.float32(0.0)),
                       dtype=torch.float32, device=device)
@@ -229,11 +233,12 @@ def normal(key, shape, device="cpu") -> torch.Tensor:
     return torch.erfinv(u) * np.float32(np.sqrt(2))
 
 
-def permutation(key, n: int, device="cpu") -> torch.Tensor:
+def permutation(key, n: int, device="cuda") -> torch.Tensor:
     """``jax.random.permutation(key, n)``: JAX's ``_shuffle``, which runs
     ``ceil(3 ln n / ln(2**32 - 1))`` rounds; each splits the key, draws u32
     sort keys of shape (n,) from the second half and stable-sorts by them.
     Returns int64[n] on ``device``."""
+    device = resolve_device(device)
     rounds = int(np.ceil(3 * np.log(max(1, n))
                          / np.log(np.iinfo(np.uint32).max)))
     x = torch.arange(n, dtype=torch.int64, device=device)

@@ -145,13 +145,11 @@ def run_episode(cfg: SimConfig, seed: int, steps: int,
 
     mode: 'rule_based' | 'model' (the modular agents with random
     fallbacks) | 'mono' (the monolith agent) | 'random' (the legacy global
-    MT19937 stream; no series).  ``render`` needs the dashboard, which is
-    not ported yet."""
-    if render:
-        raise NotImplementedError(
-            "run_episode(render=True) needs viz/, which is not ported yet "
-            "(ROADMAP.md Queue 1, item 6)")
-    series = collect_series and mode != "random"
+    MT19937 stream; no series, no render).  ``render`` draws the
+    dashboard of the episode (``viz.dashboard.plot_env`` with
+    ``render_kwargs``, by default ``{"save": True}``); it needs
+    matplotlib."""
+    series = (collect_series or render) and mode != "random"
     st, outs, extra = _run_batch(cfg, [seed], steps, mode, sort_params,
                                  press_params, mono_params,
                                  use_action_masking, series, device)
@@ -160,6 +158,11 @@ def run_episode(cfg: SimConfig, seed: int, steps: int,
     if series:
         res.series = episode_series(
             cfg, (one, {k: v[:, 0] for k, v in extra.items()}))
+        if render:
+            from ..viz.dashboard import plot_env
+
+            plot_env(cfg, res.series, S.env_at(st), seed=seed,
+                     **(render_kwargs or {"save": True}))
     return res
 
 

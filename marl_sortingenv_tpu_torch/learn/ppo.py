@@ -273,7 +273,7 @@ def init_train_state(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
     splits into the learner's key chain and the key of the initial weights
     (``mlp.init_params``)."""
     dev = resolve_device(device)
-    key, pkey = TF.split_key(TF.prng_key(seed))
+    key, pkey = TF.split_key(TF.prng_key(seed, device="cpu"))
     params = mlp.init_params(pkey, spec.obs_dim, spec.n_actions, device=dev)
     env_state = spec.reset_batch(cfg, n_envs, env_seed0, device=dev)
     acc = _return_dtype(spec)
@@ -558,7 +558,7 @@ def evaluate(cfg: SimConfig, spec: VariantSpec, params: mlp.ActorCritic,
     st = spec.reset_batch(cfg, n_envs, seed0, device=dev)
     obs = spec.obs_fn(cfg, st)
     if key is None:
-        key = TF.prng_key(0)
+        key = TF.prng_key(0, device="cpu")
     total = torch.zeros(n_envs, dtype=_return_dtype(spec), device=dev)
     alive = torch.ones(n_envs, dtype=torch.bool, device=dev)
     for _ in range(n_steps):

@@ -5,22 +5,24 @@
 then press with the frozen sort agent in the env step, then mono.  It
 keeps the SB3-behavioural pieces: periodic evaluation on a fixed-seed eval
 env with best-checkpoint retention, a final evaluation, model saving with
-``prev/`` rotation, and full-state checkpoints for a bitwise resume.  The
-flow's last step, the 5-policy benchmark, runs on the parity engine and
-comes with it (ROADMAP.md Queue 1, items 7 and 9).
+``prev/`` rotation, and full-state checkpoints for a bitwise resume.
+``run_training_flow`` runs the three stages and then the 5-policy
+benchmark on the parity engine (``eval/harness.run_model_benchmark``).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
 from .. import resolve_device
 from ..config.config import SimConfig
+from ..eval import harness
 from ..models import mlp
 from ..utils import checkpoint as CK
 from ..utils.metrics import MetricsLogger
@@ -180,3 +182,74 @@ def train_agent(cfg: SimConfig, variant: str, total_timesteps: int,
         print(f"  [{variant}] done in {time.time() - t0:.1f}s — final "
               f"{final_mean:.2f} ± {final_std:.2f}")
     return TrainResult(params, final_mean, final_std, history)
+
+
+def run_training_flow(cfg: SimConfig, use_action_masking: bool,
+                      total_timesteps: int = 100_000, n_envs: int = 16,
+                      seed: int = 42, engine: str = "fastb",
+                      bench_seeds: int = 10, steps_test: int = 200,
+                      models_dir: str = "./models",
+                      logger: Optional[MetricsLogger] = None,
+                      tuned: bool = False,
+                      ckpt_dir: Optional[str] = None,
+                      resume: bool = False,
+                      verbose: bool = True,
+                      device="cuda") -> Dict:
+    """The reference's main.py:137-185: sort -> press (frozen sort) ->
+    mono -> benchmark.
+
+    ``ckpt_dir``/``resume``: per-stage full-state checkpointing (see
+    ``train_agent``) in ``<ckpt_dir>/<variant>_<Masked|NoMask>``.  A
+    killed flow resumed with ``resume=True`` fast-forwards completed
+    stages (their last checkpoint is at or near the final iteration, so
+    the training loop re-runs at most the post-checkpoint tail) and
+    continues the interrupted stage from its last eval boundary."""
+    dev = resolve_device(device)
+    tagm = "Masked" if use_action_masking else "NoMask"
+
+    def stage_ckpt(variant):
+        if ckpt_dir is None:
+            return None
+        return os.path.join(ckpt_dir, f"{variant}_{tagm}")
+
+    if verbose:
+        print(f"\n[1/3] Training Sorting Agent ({tagm})...")
+    sort_res = train_agent(cfg, "sort", total_timesteps, n_envs,
+                           use_action_masking, seed=seed, engine=engine,
+                           models_dir=models_dir,
+                           save_prefix=f"PPO_Sorting_{tagm}", logger=logger,
+                           tuned=tuned, ckpt_dir=stage_ckpt("sort"),
+                           resume=resume, verbose=verbose, device=dev)
+    if verbose:
+        print(f"\n[2/3] Training Pressing Agent ({tagm})...")
+    press_res = train_agent(cfg, "press", total_timesteps, n_envs,
+                            use_action_masking,
+                            sort_params=sort_res.params, seed=seed,
+                            engine=engine, models_dir=models_dir,
+                            save_prefix=f"PPO_Pressing_{tagm}",
+                            logger=logger, tuned=tuned,
+                            ckpt_dir=stage_ckpt("press"), resume=resume,
+                            verbose=verbose, device=dev)
+    if verbose:
+        print(f"\n[3/3] Training Monolith Agent ({tagm})...")
+    mono_res = train_agent(cfg, "mono", total_timesteps, n_envs,
+                           use_action_masking, seed=seed, engine=engine,
+                           models_dir=models_dir,
+                           save_prefix=f"PPO_Monolith_{tagm}", logger=logger,
+                           tuned=tuned, ckpt_dir=stage_ckpt("mono"),
+                           resume=resume, verbose=verbose, device=dev)
+
+    if verbose:
+        print("\n--- Running Final Model Benchmark ---")
+    # print_table renders the reference's per-seed lines + pandas
+    # summary table (benchmark_models.py:26-47, 176-181)
+    summary, rows = harness.run_model_benchmark(
+        cfg, num_seeds=bench_seeds, steps=steps_test,
+        sort_params=sort_res.params, press_params=press_res.params,
+        mono_params=mono_res.params,
+        use_action_masking=use_action_masking,
+        print_table=verbose, device=dev)
+    return {
+        "sort": sort_res, "press": press_res, "mono": mono_res,
+        "benchmark": summary, "benchmark_rows": rows,
+    }

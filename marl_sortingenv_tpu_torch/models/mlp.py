@@ -197,7 +197,9 @@ def _orthogonal(key, shape, gain: float) -> np.ndarray:
     threefry key: the Q of a QR of a standard normal matrix, its columns'
     signs set by R's diagonal, times ``gain``."""
     n_rows, n_cols = shape
-    flat = TF.normal(key, (max(n_rows, n_cols), min(n_rows, n_cols)))
+    # drawn on the CPU, so that a key gives the same weights on every device
+    flat = TF.normal(key, (max(n_rows, n_cols), min(n_rows, n_cols)),
+                     device="cpu")
     q, r = torch.linalg.qr(flat)
     q = q * torch.sign(torch.diagonal(r))
     if n_rows < n_cols:

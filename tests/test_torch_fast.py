@@ -136,7 +136,7 @@ def test_fast_view_equals_fastb_full(bale_mode):
 
 def test_reset_of_one_key_is_a_batch_of_one():
     cfg = load_config(**KW)
-    keys = TF.split(TF.prng_key(9)[None], 3)[0]
+    keys = TF.split(TF.prng_key(9, device="cpu")[None], 3)[0]
     three = FE.reset(cfg, keys)
     one = FE.reset(cfg, keys[1])
     for nm, a, b in zip(FE.FastEnvState._fields, three, one):

@@ -4,6 +4,8 @@ sort env, the press env (masked and sanitize), the unmasked monolith, and
 the press-completion config (press times 1/2, balesize 16) where the event
 log takes real writes, and unmasked actions outside the action space.
 Tolerances as in test_torch_fastb."""
+import os
+
 import pytest
 import torch
 
@@ -43,18 +45,20 @@ def test_press_completion_events_bitwise(variant):
     assert int(st.ev_cnt.max()) > 0, "no press completed"
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(tmp_path):
     """What is still unported raises ``NotImplementedError`` naming its
-    ROADMAP item: sharded training and the episode dashboard."""
+    ROADMAP item: sharded training.  The episode dashboard, which raised
+    until it was ported, draws."""
     from marl_sortingenv_tpu_torch.config.config import load_config
     from marl_sortingenv_tpu_torch.eval import harness
     from marl_sortingenv_tpu_torch.learn import ppo
 
     cfg = load_config(**BASE)
-    for call in (lambda: ppo.make_train_iteration(
-                     cfg, ppo.PPOConfig(), ppo.spec_for("mono", "fastb"),
-                     mesh=object()),
-                 lambda: harness.run_episode(cfg, 1, 2, render=True,
-                                             device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ppo.make_train_iteration(cfg, ppo.PPOConfig(),
+                                 ppo.spec_for("mono", "fastb"),
+                                 mesh=object())
+    harness.run_episode(cfg, 1, 2, render=True, device="cpu",
+                        render_kwargs={"save": True, "fmt": "png",
+                                       "log_dir": str(tmp_path)})
+    assert os.listdir(tmp_path) == ["plot.png"]

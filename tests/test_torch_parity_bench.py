@@ -4,7 +4,7 @@ on the CPU: the Random and Rule-Based means of ``run_model_benchmark`` at
 numbers (``artifacts/benchmark_results.json``, the ``parity`` row of
 ``artifacts/engine_drift.json``); ``run_episode`` in its modes against
 the JAX package's, the dashboard series included; ``compare_engine_drift``
-and the refusal of ``render``."""
+and ``render`` (which raised until the dashboard was ported)."""
 import numpy as np
 import pytest
 import torch
@@ -57,7 +57,7 @@ def test_run_episode_matches_jax(mode):
             assert np.array_equal(got.series[k], want.series[k]), k
 
 
-def test_drift_table_and_render_refusal():
+def test_drift_table_and_render_refusal(tmp_path):
     cfg = load_config(max_steps=10)
     table = harness.compare_engine_drift(cfg, num_seeds=2, steps=4,
                                          device="cpu")
@@ -66,5 +66,9 @@ def test_drift_table_and_render_refusal():
                                      "PPO Sort-Only", "PPO Modular"]
     row = harness.benchmark_seed_all(cfg, 2, 4, device="cpu")
     assert row["seed"] == 2 and "PPO Monolith" not in row
-    with pytest.raises(NotImplementedError, match="item 6"):
-        harness.run_episode(cfg, 1, 3, render=True, device="cpu")
+    # the dashboard is ported: render draws the episode, no refusal
+    res = harness.run_episode(cfg, 1, 3, render=True, device="cpu",
+                              render_kwargs={"save": True, "fmt": "png",
+                                             "log_dir": str(tmp_path)})
+    assert len(res.series["purity"]) == 3
+    assert (tmp_path / "plot.png").stat().st_size > 0

@@ -188,3 +188,22 @@ def test_entry_points_need_cuda_or_explicit_cpu():
         ppo.evaluate(cfg, ppo.spec_for("mono", "parity"), model, 4, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         harness.run_model_benchmark(cfg, 1, 2)
+    # the threefry's one-key draws
+    from marl_sortingenv_tpu_torch.core import threefry as TF
+    key = TF.prng_key(0, device="cpu")
+    for call in (lambda: TF.prng_key(0), lambda: TF.random_bits(key, (4,)),
+                 lambda: TF.normal(key, (4,)),
+                 lambda: TF.permutation(key, 4)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # the envs, the flow and the CLI
+    from marl_sortingenv_tpu_torch import envs, main
+    from marl_sortingenv_tpu_torch.learn import trainer
+    for cls in (envs.Env_1_Sorting, envs.Env_2_Pressing,
+                envs.Env_3_Monolith):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(max_steps=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        trainer.run_training_flow(cfg, True, 512, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main.run_sim(main.build_parser().parse_args(["--env-analysis"]))

@@ -79,7 +79,7 @@ def test_bernoulli(keys):
 @pytest.mark.parametrize("seed", [0, 42, 2**31 + 5, 2**40 + 3])
 def test_prng_key_and_batch_split(seed):
     _eq(jax.random.split(jax.random.PRNGKey(seed), 9),
-        TF.split(TF.prng_key(seed)[None], 9)[0])
+        TF.split(TF.prng_key(seed, device="cpu")[None], 9)[0])
 
 
 def test_fma_f32_rounds_once():
