@@ -44,8 +44,21 @@ worker processes (every obs, reward, terminated, info, mask, log,
 accessor and checksum line equal), times one loop per class, and runs
 ``check_env`` and ``testing.test_env`` on the card.  The card's machine
 has no matplotlib (``CARD_PACKAGES``): what draws figures is held on the
-CPU only.
-The second-to-last line of standard output is a JSON
+CPU only.  Phase 18 runs the integer-exact engine (no kernel; integer
+arithmetic only) in every scenario of ``eval/exact_scenarios`` on the card
+and on the CPU in worker processes, bit for bit against each other and
+against the JAX package's golden files (``artifacts/exact_cpu_*.npz``)
+and the TPU's (the f32 agents' actions on it up to counted near-ties),
+and times the exact step alone.  Phase 19 runs five sharded PPO
+iterations on ``fastb`` at 4096 global envs over 1 rank (NCCL) and 2
+ranks on the one card (gloo) through
+``python -m marl_sortingenv_tpu_torch.parallel.dryrun``, each rank's
+kernel-1 steps held to their plain version on its shard at both ends of
+each rollout but the timed last, the parameters and losses bitwise those
+of the unsharded iterations, and a sharded frozen-sort press rollout
+whose per-rank kernel-2 launches are held to their plain version
+(``--exact-sharded`` runs phases 18 and 19 alone).  The second-to-last
+line of standard output is a JSON
 ``kernels`` record; the last line is ``{"ok": true, "device": ...}``.
 Any failure raises and exits non-zero without those lines.  Without CUDA,
 or without the port next to this file, it exits non-zero at once.  Details
@@ -463,6 +476,20 @@ def full_sweep(dev, gen, widths=SWEEP_WIDTHS) -> dict:
               for name, c in sweep_configs().items()}
     report["redistribute_support_128"] = support_128_sweep(dev, widths)
     return report
+
+
+def exact_sharded_only(dev) -> int:
+    """``--exact-sharded``: build, then phases 18 and 19 alone."""
+    from marl_sortingenv_tpu_torch.ops import _build
+    print(gpu_line(), flush=True)
+    _build.build_all()
+    launches = dict.fromkeys(launch_counts(), 0)
+    report = {"exact": phase_exact(dev),
+              "sharded": phase_sharded(dev, launches, {})}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "exact_sharded.json").write_text(json.dumps(report, indent=1))
+    return 0
 
 
 def sweep_only(dev) -> int:
@@ -1835,6 +1862,332 @@ def frozen_press_ab(cfg, sort_agent, gen, dev, n: int) -> None:
                                  "no reset")
 
 
+# ---- the integer-exact engine: phase 18 -------------------------------------
+
+EXACT_CARD_WORKERS, EXACT_CPU_WORKERS = 5, 2
+EXACT_TIMED_STEPS = 3       # alone on the host, by the host clock
+
+
+def exact_scenario(job):
+    """A worker process: one scenario of ``eval/exact_scenarios`` on the
+    device; returns (name, its arrays, its stats, the kernels it
+    launched)."""
+    from marl_sortingenv_tpu_torch.eval import exact_scenarios as XS
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, device = job
+    before = launch_counts()
+    out = XS.run(name, device)
+    stats = out.pop("_stats")
+    stats["near"] = out.pop("_near", None)
+    return (name, out, stats,
+            {k: v - before[k] for k, v in launch_counts().items()})
+
+
+def exact_tie_check(dev) -> None:
+    """Integer logits tie exactly where f32 ones almost never do: on the
+    card the first maximal index wins, masked or not, as on the CPU."""
+    from marl_sortingenv_tpu_torch.models import mlp_exact as MX
+    b = torch.zeros(11, dtype=torch.int64)
+    b[[2, 5, 7]] = 1 << 28
+    qp = MX.QPolicy(pi=(MX.QDense(torch.zeros(16, 32, dtype=torch.int32),
+                                  torch.zeros(32, dtype=torch.int64)),),
+                    action=MX.QDense(torch.zeros(32, 11, dtype=torch.int32),
+                                     b))
+    qg = MX.QPolicy(pi=tuple(MX.QDense(l.w.to(dev), l.b.to(dev))
+                             for l in qp.pi),
+                    action=MX.QDense(qp.action.w.to(dev),
+                                     qp.action.b.to(dev)))
+    obs = torch.rand(4096, 16, generator=torch.Generator().manual_seed(3))
+    mask = torch.ones(4096, 11, dtype=torch.bool)
+    mask[1::4, 2] = False
+    mask[2::4, 2] = mask[2::4, 5] = False
+    first = torch.tensor([2, 5, 7, 2], dtype=torch.int32).repeat(1024)
+    for m, want in ((None, torch.full((4096,), 2, dtype=torch.int32)),
+                    (mask, first)):
+        c = MX.predict_deterministic_q(qp, obs, m)
+        g = MX.predict_deterministic_q(qg, obs.to(dev),
+                                       None if m is None else m.to(dev))
+        if not (torch.equal(g.cpu(), want) and torch.equal(c, want)):
+            raise AssertionError("an exact tie of integer logits did not "
+                                 "take the first maximal index")
+
+
+def exact_actions(g, sg, c, sc) -> dict:
+    """Phase 18's ``model_actions`` (the f32 agents of
+    ``artifacts/models_tuned`` on the exact engine: the monolith in closed
+    loop, the sort and press agents on the rule-based obs streams): the
+    card's actions held to the CPU's and to the JAX CPU and TPU files,
+    an action split allowed only where either device's two largest logits
+    lie within ``XS.ARGMAX_RTOL`` (a closed-loop episode compared up to its
+    first split).  The splits are counted and printed."""
+    from marl_sortingenv_tpu_torch.eval import exact_scenarios as XS
+    near = {k: sg["near"][k] | sc["near"][k] for k in g}
+    out = {"steps": sg["steps"], "envs": sg["envs"],
+           "card_ms_per_step": sg["seconds"] / sg["steps"] * 1e3,
+           "cpu_ms_per_step": sc["seconds"] / sc["steps"] * 1e3,
+           "actions": sum(v.size for v in g.values()),
+           "near_tie_steps": int(sum(v.sum() for v in near.values())),
+           "splits": {}}
+    for tag, want in (("CPU", c), ("JAX CPU file", XS.golden("model_actions")),
+                      ("TPU file", XS.golden("model_actions", tpu=True))):
+        if sorted(want) != sorted(g):
+            raise AssertionError(f"exact model_actions: keys differ from "
+                                 f"the {tag}")
+        bad, ties = XS.compare_actions(g, want, near)
+        if bad:
+            raise AssertionError(f"exact model_actions: card != {tag} in "
+                                 f"{bad}, with no near-tie")
+        out["splits"][tag] = ties
+    print(f"phase 18: exact model_actions (the f32 agents of models_tuned), "
+          f"10 seeds x {sg['steps']} steps, {out['actions']} actions: card "
+          f"== CPU == JAX CPU file == TPU file but at near-ties of the f32 "
+          f"logits ({out['near_tie_steps']} near-tie steps; splits: "
+          + ", ".join(f"{len(v)} vs the {k}" for k, v in
+                      out["splits"].items())
+          + f"); card {out['card_ms_per_step']:.2f} ms per step (closed "
+          f"loop and rule stream), CPU {out['cpu_ms_per_step']:.2f}; no "
+          f"kernel launched", flush=True)
+    return out
+
+
+def phase_exact(dev) -> dict:
+    """Phase 18, the integer-exact engine (plain PyTorch, no kernel of its
+    own, none of kernels 1-3): every scenario of ``eval/exact_scenarios``
+    (the JAX package's artifact scripts' scenarios: the Rule-Based
+    benchmark at 10 seeds x 200 steps with its soft-float return, every
+    step variant at noise 0 and 0.05, the golden trajectory, the four
+    integer-policy paths with the agents of ``artifacts/models_masked``,
+    and 4096 envs x 20 rule steps) on the card and on the CPU in worker
+    processes, held bit for bit to each other and, where a golden file
+    exists, to the JAX package's CPU file and to the TPU's file; and the
+    f32 agents' actions on the exact engine (``model_actions``), held so
+    but for counted near-ties of their f32 logits (``exact_actions``).  Then,
+    alone on the host, ms, host syncs and device kernels per exact step."""
+    from concurrent.futures import ProcessPoolExecutor
+    import multiprocessing as mp
+    from marl_sortingenv_tpu_torch.core import exact_dynamics as XD
+    from marl_sortingenv_tpu_torch.core import rng as PR
+    from marl_sortingenv_tpu_torch.core import state as PSt
+    from marl_sortingenv_tpu_torch.eval import exact_scenarios as XS
+    t0 = time.perf_counter()
+    exact_tie_check(dev)
+    # the longest runs first: the f32 agents' actions, the integer-policy
+    # paths, the benchmark
+    names = sorted(XS.NAMES, key=lambda n: (n != "model_actions",
+                                            not n.startswith("model:"),
+                                            n != "bench", n))
+    spawn = mp.get_context("spawn")
+    rep = {"scenarios": {}}
+    with ProcessPoolExecutor(EXACT_CARD_WORKERS, mp_context=spawn) as gp, \
+            ProcessPoolExecutor(EXACT_CPU_WORKERS, mp_context=spawn) as cp:
+        card = [gp.submit(exact_scenario, (n, "cuda")) for n in names]
+        cpu = [cp.submit(exact_scenario, (n, "cpu")) for n in names]
+        for name, fg, fc in zip(names, card, cpu):
+            _, g, sg, lg = fg.result()
+            _, c, sc, _ = fc.result()
+            if any(lg.values()):
+                raise AssertionError(f"exact {name} launched {lg}")
+            if name == "model_actions":
+                rep["scenarios"][name] = exact_actions(g, sg, c, sc)
+                continue
+            if sorted(g) != sorted(c) or XS.compare(g, c):
+                raise AssertionError(f"exact {name}: card != CPU in "
+                                     f"{XS.compare(g, c) or sorted(g)}")
+            held = []
+            for tpu in (False, True):
+                want = XS.golden(name, tpu)
+                if want:
+                    bad = XS.compare(g, want)
+                    if bad or not set(want) <= set(g):
+                        raise AssertionError(
+                            f"exact {name}: card != the "
+                            f"{'TPU' if tpu else 'JAX CPU'} file in {bad}")
+                    held.append("TPU file" if tpu else "JAX CPU file")
+            ms = sg["seconds"] / sg["steps"] * 1e3
+            rep["scenarios"][name] = {
+                "steps": sg["steps"], "envs": sg["envs"],
+                "card_ms_per_step": ms,
+                "cpu_ms_per_step": sc["seconds"] / sc["steps"] * 1e3,
+                "host_syncs_per_step": sg["host_syncs"] / sg["steps"],
+                "held_to": ["CPU"] + held, "keys": sorted(g)}
+            print(f"phase 18: exact {name}, {sg['envs']} envs x "
+                  f"{sg['steps']} steps: card == CPU"
+                  + "".join(f" == {h}" for h in held)
+                  + f", bit for bit in {len(g)} arrays ({', '.join(sorted(g)[:4])}"
+                  f"{', ...' if len(g) > 4 else ''}); card {ms:.2f} ms per "
+                  f"step, {sg['host_syncs'] / sg['steps']:.2f} host syncs per "
+                  f"step, CPU {sc['seconds'] / sc['steps'] * 1e3:.2f} ms per "
+                  f"step; no kernel launched", flush=True)
+    rep["scenarios_s"] = time.perf_counter() - t0
+
+    # alone on the host: ms, host syncs and device kernels per exact step
+    rep["alone"] = {}
+    for noise in (0.0, 0.05):
+        cfg = XS.config(noise)
+        for n in (10, 4096):
+            st = PSt.reset(cfg, np.arange(n), device=dev)
+            for _ in range(2):
+                st, _ = XD.step_mono_rule_exact(cfg, st)
+            torch.cuda.synchronize()
+            s0, w0 = PR.HOST_SYNCS, time.perf_counter()
+            for _ in range(EXACT_TIMED_STEPS):
+                st, _ = XD.step_mono_rule_exact(cfg, st)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - w0) / EXACT_TIMED_STEPS * 1e3
+            syncs = (PR.HOST_SYNCS - s0) / EXACT_TIMED_STEPS
+            # one more step under the profiler: its kernels and busy share
+            _, wall_us, busy, by_kernel, n_kern = profile_busy(
+                lambda st=st, cfg=cfg: XD.step_mono_rule_exact(cfg, st))
+            key = f"noise {noise} rule, {n} envs"
+            rep["alone"][key] = {
+                "ms_per_step": ms, "host_syncs_per_step": syncs,
+                "device_kernels_per_step": n_kern,
+                "profiled_ms_per_step": wall_us / 1e3,
+                "device_busy_share": busy,
+                "device_ms_by_kernel": {k: t / 1e3 for k, t in by_kernel[:6]}}
+            print(f"phase 18: exact rule step at noise {noise}, {n} envs, "
+                  f"alone: {ms:.2f} ms per step (mean of "
+                  f"{EXACT_TIMED_STEPS}), {syncs:.2f} host syncs per step, "
+                  f"{n_kern} device kernels per step, device busy "
+                  f"{busy:.3f} (one profiled step)", flush=True)
+    rep["seconds"] = time.perf_counter() - t0
+    print(f"phase 18: {len(names) - 1} integer scenarios card == CPU == "
+          f"the golden files where they exist, 0 mismatches; the f32 "
+          f"agents' actions as above; an exact tie of "
+          f"integer logits takes the first index on the card "
+          f"({rep['seconds']:.1f} s)", flush=True)
+    return rep
+
+
+# ---- data parallelism: phase 19 ---------------------------------------------
+
+SHARD_ARGV = ["--n-envs", "4096", "--n-steps", "64", "--batch-size", "16384",
+              "--epochs", "4", "--shuffle-block", "128", "--max-steps", "200",
+              "--iterations", "5", "--rollout-steps", "24",
+              "--legs", "train,press"]
+
+
+def run_dryrun(world: int, backend: str, out: Path) -> dict:
+    """``python -m marl_sortingenv_tpu_torch.parallel.dryrun`` on the card
+    (its ranks are processes of their own); its results and per-rank,
+    per-leg kernel launches."""
+    cmd = [sys.executable, "-m", "marl_sortingenv_tpu_torch.parallel.dryrun",
+           "--world", str(world), "--backend", backend, "--device", "cuda",
+           *SHARD_ARGV, "--out", str(out), "--timeout", "400"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=450)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun world {world} {backend} exited "
+                             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    with np.load(out) as d:
+        res = {k: d[k] for k in d.files}
+    res["_launches"] = json.loads(str(res.pop("launches")))
+    res["_seconds"] = secs
+    return res
+
+
+def phase_sharded(dev, main_launches, by_path) -> dict:
+    """Phase 19, data parallelism on ``fastb`` at the JAX benchmark's
+    width (4096 global envs, 64 steps, minibatches of 16384, 4 epochs):
+    five sharded PPO iterations (320 steps, across the episode's end at
+    200) over 1 rank (NCCL) and over 2 ranks on the one card (gloo, staged
+    through host memory: NCCL refuses two ranks on one card), each rank
+    stepping its shard with kernel 1, held bitwise to its plain version on
+    the shard in the first and the last ``dryrun.HOLD`` steps of each of
+    the first four rollouts (the fifth is timed); the parameters and loss
+    stats bitwise those of five unsharded iterations on the card.  And the
+    sharded frozen-sort press rollout (24 steps), each rank's
+    kernel-2 launches held bitwise to their plain version on its shard,
+    and the gathered rollout to the unsharded one."""
+    from marl_sortingenv_tpu_torch.parallel import dryrun as DR
+    t0 = time.perf_counter()
+    args = DR.parse(SHARD_ARGV)
+    want = {}
+    for leg in ("train", "press"):
+        before = launch_counts()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        want[leg] = DR.unsharded(leg, args, dev)
+        e1.record()
+        torch.cuda.synchronize()
+        want[leg]["_ms"] = e0.elapsed_time(e1)
+        restore_counts(before)     # the reference: not a sharded launch
+    unsharded_s = want["train"]["_ms"] / 1e3 / args.iterations
+    rep = {"unsharded_iteration_s": unsharded_s, "runs": {}}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        res = run_dryrun(world, backend, out_dir / f"dryrun_{world}.npz")
+        for leg in ("train", "press"):
+            for k, v in want[leg].items():
+                if k.startswith("_"):
+                    continue
+                g = res[f"{leg}/{k}"]
+                v = v.detach().cpu().numpy()
+                if g.dtype != v.dtype or g.shape != v.shape or \
+                        not np.array_equal(g, v):
+                    raise AssertionError(f"phase 19: world {world} "
+                                         f"({backend}) {leg}: {k} differs "
+                                         "from the unsharded run")
+        per_leg = {leg: {k: sum(r[leg][k] for r in res["_launches"])
+                         for k in main_launches} for leg in ("train", "press")}
+        n_local = 4096 // world
+        if per_leg["train"] != {"step_mono": 64 * world * args.iterations,
+                                "sort_material": 0,
+                                "sort_redistribute": 0} or \
+                per_leg["press"] != {"step_mono": 0,
+                                     "sort_material": 24 * world,
+                                     "sort_redistribute": 0}:
+            raise AssertionError(f"phase 19: world {world} launches "
+                                 f"{per_leg}")
+        held = {leg: sum(r[leg]["held_to_plain"] for r in res["_launches"])
+                for leg in ("train", "press")}
+        if held != {"train": 2 * DR.HOLD * world * (args.iterations - 1),
+                    "press": 24 * world}:
+            raise AssertionError(f"phase 19: world {world} held {held}")
+        add_launches(main_launches, by_path,
+                     f"sharded train, {world} rank(s) ({backend}) (19)",
+                     per_leg["train"])
+        add_launches(main_launches, by_path,
+                     f"sharded frozen-sort press, {world} rank(s) "
+                     f"({backend}) (19)", per_leg["press"])
+        secs = float(res["train/seconds"])
+        rep["runs"][f"{world}_{backend}"] = {
+            "world": world, "backend": backend,
+            "staged_through_host": backend == "gloo",
+            "envs_per_rank": n_local, "iteration_s": secs,
+            "samples_per_s": 4096 * 64 / secs, "launches": per_leg,
+            "held_to_plain": held,
+            "process_s": res["_seconds"],
+            "loss": float(res["train/stat_loss"])}
+        print(f"phase 19: sharded PPO iteration on fastb, {world} rank(s) "
+              f"over {backend}{' (staged through host memory)' if backend == 'gloo' else ''}, "
+              f"{n_local} envs per rank: parameters and loss stats bitwise "
+              f"== the unsharded iteration on the card (loss "
+              f"{float(res['train/stat_loss']):.6f}, after "
+              f"{args.iterations} iterations, across the episode's end at "
+              f"step {args.max_steps}); the last iteration {secs:.3f} "
+              f"s in rank 0 (unsharded {unsharded_s:.3f} s per iteration, "
+              f"mean of {args.iterations}); kernel 1 "
+              f"{per_leg['train']['step_mono']} launches, "
+              f"{held['train']} of them (the first and the last "
+              f"{DR.HOLD} of each rank's first {args.iterations - 1} "
+              f"rollouts, PPO-sampled actions, "
+              f"{n_local} envs) == the plain step on the rank's shard, "
+              f"bitwise in every leaf and output; the "
+              f"frozen-sort press rollout (24 steps): every rank's kernel-2 "
+              f"launch ({per_leg['press']['sort_material']} in all) == its "
+              f"plain version on its shard, the gathered rollout == the "
+              f"unsharded one ({res['_seconds']:.1f} s with the processes' "
+              f"start)", flush=True)
+    rep["seconds"] = time.perf_counter() - t0
+    print(f"phase 19: {rep['seconds']:.1f} s", flush=True)
+    return rep
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1849,6 +2202,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--sweep"]:
         return sweep_only(dev)
+    if sys.argv[1:] == ["--exact-sharded"]:
+        return exact_sharded_only(dev)
 
     # ---- 1. the card ------------------------------------------------------
     gpu = gpu_line()
@@ -2490,6 +2845,13 @@ def main() -> int:
     # ---- 17. the Gymnasium drop-in envs, card against CPU -----------------
     report["envs"] = phase_envs(dev)
     add_launches(main_launches, by_path, "envs (17)", {})
+
+    # ---- 18. the integer-exact engine, card against CPU and golden files ---
+    report["exact"] = phase_exact(dev)
+    add_launches(main_launches, by_path, "exact engine (18)", {})
+
+    # ---- 19. data parallelism: the sharded iteration and press rollout ----
+    report["sharded"] = phase_sharded(dev, main_launches, by_path)
 
     report["main_path_launches"] = main_launches
     report["launches_by_path"] = by_path

@@ -304,14 +304,18 @@ def sort_material(cfg: SimConfig, st: EnvState
 # Presses & bales
 # ---------------------------------------------------------------------------
 
-def _press_bale(cfg: SimConfig, st: EnvState, m, n, q):
+def bale_quality_int(q: torch.Tensor) -> torch.Tensor:
+    """A bale's quality ``int(q * 100)``: truncation toward zero."""
+    return (q * 100.0).to(I32)
+
+
+def _press_bale(cfg: SimConfig, st: EnvState, m, n, q_int):
     """Each env's bales of material ``m`` after pressing ``n`` units of
-    quality ``q``: ``n // balesize`` full bales of (balesize, int(q*100));
-    a remainder above threshold*balesize becomes its own bale, otherwise
-    it merges into the last one (or opens one if the list is empty).
-    Returns (bale_size, bale_qual, bale_cnt)."""
+    integer quality ``q_int``: ``n // balesize`` full bales of (balesize,
+    q_int); a remainder above threshold*balesize becomes its own bale,
+    otherwise it merges into the last one (or opens one if the list is
+    empty).  Returns (bale_size, bale_qual, bale_cnt)."""
     bs = cfg.effective_balesize
-    q_int = (q * 100.0).to(I32)          # truncation toward zero
     full = n // bs
     rem = n % bs
     sel = _onehot(m, 5)
@@ -345,11 +349,14 @@ def _press_bale(cfg: SimConfig, st: EnvState, m, n, q):
             torch.where(sel, cnt[:, None], st.bale_cnt))
 
 
-def check_press_status(cfg: SimConfig, st: EnvState) -> EnvState:
+def check_press_status(cfg: SimConfig, st: EnvState,
+                       quality_int=bale_quality_int) -> EnvState:
     """Decrement busy press timers; on reaching zero, bale out and clear.
     Press 1 strictly before press 2 (the bale append order matters when
     both finish in the same step).  The bale update is skipped, after one
-    host read, for a press that finishes in no env."""
+    host read, for a press that finishes in no env.  ``quality_int`` maps
+    ``press_q`` to the bales' integer quality (the integer-exact engine
+    stores cents and passes its own)."""
     busy = st.press_timer > 0
     timer = torch.where(busy, st.press_timer - 1, st.press_timer)
     done = busy & (timer == 0)
@@ -357,8 +364,9 @@ def check_press_status(cfg: SimConfig, st: EnvState) -> EnvState:
     for p in range(2):
         if flags[p]:
             d = done[:, p]
-            size, qual, cnt = _press_bale(cfg, st, st.press_mat[:, p],
-                                          st.press_n[:, p], st.press_q[:, p])
+            size, qual, cnt = _press_bale(
+                cfg, st, st.press_mat[:, p], st.press_n[:, p],
+                quality_int(st.press_q[:, p]))
             st = st._replace(
                 bale_size=torch.where(d[:, None, None], size, st.bale_size),
                 bale_qual=torch.where(d[:, None, None], qual, st.bale_qual),

@@ -59,11 +59,13 @@ def threefry2x32(k0, k1, c0, c1):
     return x0, x1
 
 
-def _blocks(keys: torch.Tensor, num: int):
-    """Blocks (0, i) for i < num of every key: int64 (N, num) pairs."""
+def _blocks(keys: torch.Tensor, num: int, start: int = 0):
+    """Blocks (0, i) for start <= i < start + num of every key: int64
+    (N, num) pairs."""
     k = _u32(keys)
     k0, k1 = k[:, 0:1], k[:, 1:2]
-    ctr = torch.arange(num, dtype=torch.int64, device=keys.device)[None, :]
+    ctr = torch.arange(start, start + num, dtype=torch.int64,
+                       device=keys.device)[None, :]
     return threefry2x32(k0, k1, torch.zeros_like(ctr), ctr)
 
 
@@ -76,9 +78,11 @@ def prng_key(seed: int, device="cuda") -> torch.Tensor:
     return _i32(k)
 
 
-def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``vmap(jax.random.split(k, num))``: int32[N, 2] -> int32[N, num, 2]."""
-    o0, o1 = _blocks(keys, num)
+def split(keys: torch.Tensor, num: int = 2, start: int = 0) -> torch.Tensor:
+    """``vmap(jax.random.split(k, num))``: int32[N, 2] -> int32[N, num, 2].
+    With ``start``, rows start .. start + num - 1 of a larger split: the
+    split is counter-based, so a slice costs only its own rows."""
+    o0, o1 = _blocks(keys, num, start)
     return _i32(torch.stack([o0, o1], dim=-1))
 
 
@@ -166,14 +170,16 @@ def split_key(key, num: int = 2) -> torch.Tensor:
     return _i32(torch.tensor(rows, dtype=torch.int64))
 
 
-def random_bits(key, shape, device="cuda") -> torch.Tensor:
+def random_bits(key, shape, device="cuda", offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (32-bit) of one key, as int64 u32
     values: word i of the flat shape is ``o0 ^ o1`` of the block with the
-    64-bit counter (i >> 32, i & 0xffffffff), the partitionable scheme."""
+    64-bit counter (i >> 32, i & 0xffffffff), the partitionable scheme.
+    With ``offset`` the words are those of flat indices offset, offset +
+    1, ... of a larger draw: a shard's slice of it, and only that."""
     k0, k1 = key_words(key)
     shape = tuple(shape)
     size = int(np.prod(shape, dtype=np.int64)) if shape else 1
-    idx = torch.arange(size, dtype=torch.int64,
+    idx = torch.arange(offset, offset + size, dtype=torch.int64,
                        device=resolve_device(device))
     o0, o1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK)
     return (o0 ^ o1).reshape(shape)
@@ -194,12 +200,15 @@ def _perturbed(b: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u)) + logits.float()
 
 
-def categorical(key, logits: torch.Tensor) -> torch.Tensor:
+def categorical(key, logits: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """``jax.random.categorical(key, logits, axis=-1)`` of one key:
     ``argmax(gumbel + logits)``.  Returns int64 indices.  ``torch.log`` and
     XLA's ``log`` may differ in the last bit, so the draw agrees with JAX on
-    the chosen index except where two perturbed logits tie to an ulp."""
-    b = random_bits(key, logits.shape, logits.device)
+    the chosen index except where two perturbed logits tie to an ulp.
+    ``row0``: ``logits`` [n, A] are rows row0 .. row0 + n - 1 of a larger
+    batch, and the draw is that batch's draw for them (a shard's slice)."""
+    b = random_bits(key, logits.shape, logits.device,
+                    offset=row0 * logits.shape[-1])
     return torch.argmax(_perturbed(b, logits), dim=-1)
 
 

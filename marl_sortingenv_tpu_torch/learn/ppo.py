@@ -40,13 +40,9 @@ from ..core import fastb as FB
 from ..core import parity as PE
 from ..core import threefry as TF
 from ..models import mlp
+from ..parallel import mesh as M
 
 F32, I32 = torch.float32, torch.int32
-
-
-def _todo(what: str, item: str = "Queue 1, item 9"):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -309,13 +305,31 @@ def _onehot_select(logp_all: torch.Tensor, action: torch.Tensor, dim: int):
                        ).sum(dim=dim)
 
 
-def _sample(params: mlp.ActorCritic, obs, mask, key):
-    """Masked categorical sample + logp + value (batch)."""
-    logits = mlp.masked_logits(params.policy_logits(obs), mask)
+def _forward(params: mlp.ActorCritic, obs, mesh=None, rows=None):
+    """(logits, values) of the batch ``obs``.  With a mesh, ``obs`` is this
+    rank's rows ``rows`` of the global batch: the products run on the
+    gathered global obs and the rank keeps its rows, because cuBLAS picks
+    its kernel by the batch size, and a shard's rows of a product may
+    round apart from the same rows of the whole batch."""
+    if mesh is not None:
+        obs = M.all_gather_dp(mesh, obs, 0)
+    logits, value = params.policy_logits(obs), params.value_fn(obs)
+    if mesh is not None:
+        logits, value = logits[rows], value[rows]
+    return logits, value
+
+
+def _sample(params: mlp.ActorCritic, obs, mask, key, mesh=None, rows=None):
+    """Masked categorical sample + logp + value (batch).  With a mesh the
+    batch is this rank's rows ``rows`` of the global one, whose draw it
+    takes (``_forward``)."""
+    logits, value = _forward(params, obs, mesh, rows)
+    logits = mlp.masked_logits(logits, mask)
     logp_all = torch.log_softmax(logits, dim=-1)
-    action = TF.categorical(key, logits).to(I32)
+    row0 = 0 if rows is None else rows.start
+    action = TF.categorical(key, logits, row0).to(I32)
     logp = _onehot_select(logp_all, action, -1)
-    return action, logp, params.value_fn(obs)
+    return action, logp, value
 
 
 @torch.no_grad()
@@ -324,9 +338,17 @@ def collect_rollout(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
                     mesh=None):
     """``n_steps`` of policy + autoreset env step; returns (ts, the
     transitions, the last values).  With masking off the policy samples
-    the plain categorical and the env sanitizes invalid actions."""
+    the plain categorical and the env sanitizes invalid actions.
+
+    ``mesh`` (a ``parallel.mesh`` DeviceMesh): ``ts`` holds this rank's dp
+    shard of the envs (``parallel.fastb_shard.shard_train_state``); the
+    rank steps its shard, its categorical draws are its rows of the global
+    batch's draw, the policy's products run on the gathered obs
+    (``_forward``), and the results are the shard's."""
+    rows = None
     if mesh is not None:
-        _todo("collect_rollout(mesh=...)")
+        M.check_mesh(mesh)
+        rows = M.local_rows(mesh, ts.obs.shape[0] * M.dp_size(mesh))
     batched = spec.batched_autoreset_step(cfg, step_fn, use_action_masking)
     masks_of = spec.batched_masks(cfg)
     n, dev, T = ts.obs.shape[0], ts.obs.device, pcfg.n_steps
@@ -345,7 +367,7 @@ def collect_rollout(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
     for t in range(T):
         mask = masks_of(env_state) if use_action_masking else ones
         key, sk = TF.split_key(key)
-        action, logp, value = _sample(ts.params, obs, mask, sk)
+        action, logp, value = _sample(ts.params, obs, mask, sk, mesh, rows)
         env_state, out = batched(env_state, action)
         acc = acc + out.reward
         last_ret = torch.where(out.terminated, acc, last_ret)
@@ -358,7 +380,7 @@ def collect_rollout(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
         trs.reward[t] = out.reward
         trs.done[t] = out.terminated
         obs = out.obs
-    last_value = ts.params.value_fn(obs)
+    last_value = _forward(ts.params, obs, mesh, rows)[1]
     ts = ts._replace(env_state=env_state, obs=obs, key=key,
                      ep_return_acc=acc, last_ep_return=last_ret)
     return ts, trs, last_value
@@ -505,20 +527,40 @@ def make_train_iteration(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
                          mesh=None):
     """One PPO iteration ``ts -> (ts, stats)``: rollout + GAE + update.
 
-    ``mesh`` (a sharded rollout) raises until multi-GPU is ported."""
+    ``mesh`` (a ``parallel.mesh`` DeviceMesh; ``ts`` a rank's shard from
+    ``parallel.fastb_shard.shard_train_state``): each rank steps its env
+    shard and runs GAE on it, the transitions are gathered over dp, and
+    every rank runs the same update on the global batch with its replicated
+    parameters.  The parameters and the loss stats are then bitwise those
+    of the unsharded iteration; an all-reduce of per-rank gradients would
+    sum in another order and lose that."""
     if mesh is not None:
-        _todo("make_train_iteration(mesh=...)")
+        M.check_mesh(mesh)
     step_fn = spec.step_fn(sort_policy, use_action_masking)
 
     def train_iteration(ts: TrainState):
         ts, trs, last_value = collect_rollout(cfg, pcfg, spec, ts, step_fn,
-                                              use_action_masking)
+                                              use_action_masking, mesh)
         advantages, returns = compute_gae(pcfg, trs, last_value)
+        last_ret = ts.last_ep_return
+        if mesh is not None:
+            trs, advantages, returns, last_ret = gather_rollout(
+                mesh, trs, advantages, returns, last_ret)
         ts, stats = ppo_update(pcfg, ts, trs, advantages, returns)
-        stats["mean_episode_return"] = ts.last_ep_return.mean()
+        stats["mean_episode_return"] = last_ret.mean()
         return ts, stats
 
     return train_iteration
+
+
+def gather_rollout(mesh, trs: Transition, advantages, returns, last_ret):
+    """The dp ranks' transitions, advantages, returns and last episode
+    returns concatenated along the env axis in rank order: the unsharded
+    rollout's, on every rank."""
+    def g(x):
+        return M.all_gather_dp(mesh, x, x.dim() - 1)
+    return (Transition(*(g(x) for x in trs)), g(advantages), g(returns),
+            g(last_ret))
 
 
 def make_train_run(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,

@@ -46,15 +46,15 @@ def test_press_completion_events_bitwise(variant):
 
 
 def test_unported_paths_raise(tmp_path):
-    """What is still unported raises ``NotImplementedError`` naming its
-    ROADMAP item: sharded training.  The episode dashboard, which raised
-    until it was ported, draws."""
+    """Sharded training, ported since, refuses a ``mesh`` that is not a
+    ``DeviceMesh`` with a clear ``TypeError``.  The episode dashboard,
+    which raised until it was ported, draws."""
     from marl_sortingenv_tpu_torch.config.config import load_config
     from marl_sortingenv_tpu_torch.eval import harness
     from marl_sortingenv_tpu_torch.learn import ppo
 
     cfg = load_config(**BASE)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ppo.make_train_iteration(cfg, ppo.PPOConfig(),
                                  ppo.spec_for("mono", "fastb"),
                                  mesh=object())

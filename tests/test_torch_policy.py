@@ -169,7 +169,7 @@ def test_entry_points_need_cuda_or_explicit_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ppo.init_train_state(cfg, ppo.PPOConfig(),
                              ppo.spec_for("mono", "fastb"), 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ppo.make_train_iteration(cfg, ppo.PPOConfig(),
                                  ppo.spec_for("mono", "fastb"),
                                  mesh=object())
