@@ -1,0 +1,9 @@
+"""learner.update_ms: the mean of the synchronised ``ppo_update`` span per
+PPO iteration, over the iterations that follow a traced run's window, in
+ms."""
+
+from portbench.lib import readers
+
+
+def read(r):
+    return readers.mean_ms(r, "ppo_update")
