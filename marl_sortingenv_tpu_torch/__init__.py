@@ -20,7 +20,8 @@ Subpackage map (component parity vs reference documented per module):
                                                utils/benchmark_models.py
   viz/       dashboard + analysis figures <-> utils/plotting.py,
                                                utils/plot_env_analysis.py
-  utils/     checkpoints, metrics, env checker, profiling
+  utils/     checkpoints, metrics, env checker, profiling (the
+             program's spans and the trace exporter)
   envs.py    the Gymnasium drop-in envs   <-> src/envs_train/*
   testing.py ``test_env``                 <-> src/testing.py
   training.py ``Train_Agent``/``RL_Trainer`` <-> src/training.py

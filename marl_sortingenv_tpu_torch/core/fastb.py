@@ -35,6 +35,7 @@ import torch
 
 from .. import resolve_device
 from ..config.config import SimConfig
+from ..utils import profiling
 from . import threefry as TF
 
 I32 = torch.int32
@@ -820,6 +821,7 @@ def _decode_press(a):
 # (the kernels' plain versions) launch no kernel.
 # ---------------------------------------------------------------------------
 
+@profiling.spanned("fastb.eager", body="sort")
 def _sort_body(cfg: SimConfig, st: BState, action, plain: bool = False):
     a = action.to(I32)
     st = _update_environment(cfg, st)
@@ -866,6 +868,7 @@ def _mono_tail(cfg, st, a, purity):
     return st, BStepOut(obs, sr + pr, terminated, a.to(I32), sr, pr, purity)
 
 
+@profiling.spanned("fastb.eager", body="press")
 def _press_body(cfg: SimConfig, st: BState, action,
                 use_action_masking: bool = True, sort_policy=None,
                 plain: bool = False):
@@ -886,6 +889,7 @@ def _press_body(cfg: SimConfig, st: BState, action,
                         torch.zeros_like(reward), reward, purity)
 
 
+@profiling.spanned("fastb.eager", body="external")
 def _external_body(cfg: SimConfig, st: BState, action,
                    use_action_masking: bool = True, plain: bool = False):
     a = action.to(I32)
@@ -902,6 +906,7 @@ def _external_body(cfg: SimConfig, st: BState, action,
     return _mono_tail(cfg, st, a, purity)
 
 
+@profiling.spanned("fastb.eager", body="rule")
 def _rule_body(cfg: SimConfig, st: BState, action=None,
                plain: bool = False):
     st = _update_environment(cfg, st)
@@ -923,6 +928,7 @@ def _neg_inf_where_not(mask, logits):
     return torch.where(mask, logits, torch.full_like(logits, float("-inf")))
 
 
+@profiling.spanned("fastb.eager", body="model")
 def _model_body(cfg: SimConfig, st: BState, sort_policy=None,
                 press_policy=None, use_action_masking: bool = True,
                 plain: bool = False):
@@ -965,6 +971,7 @@ def _model_body(cfg: SimConfig, st: BState, sort_policy=None,
     return _mono_tail(cfg, st, a_flat, purity)
 
 
+@profiling.spanned("fastb.eager", body="random")
 def _random_body(cfg: SimConfig, st: BState, use_action_masking: bool = True,
                  plain: bool = False):
     """A uniform (masked) monolith action from a split of the env's key."""

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import profiling
 
 I64 = torch.int64
 F64 = torch.float64
@@ -56,6 +57,7 @@ _D_2POW53_INV = 1.0 / 9007199254740992.0  # 2**-53
 HOST_SYNCS = 0
 
 
+@profiling.spanned("rng.host_read")
 def host_any(x: torch.Tensor) -> bool:
     """``bool(x.any())``: one device-to-host read, counted."""
     global HOST_SYNCS
@@ -63,6 +65,7 @@ def host_any(x: torch.Tensor) -> bool:
     return bool(x.any())
 
 
+@profiling.spanned("rng.host_read")
 def host_ints(x: torch.Tensor) -> list:
     """The values of a 1-D int tensor, in one counted read."""
     global HOST_SYNCS
@@ -70,6 +73,7 @@ def host_ints(x: torch.Tensor) -> list:
     return x.tolist()
 
 
+@profiling.spanned("rng.host_read")
 def host_array(x: torch.Tensor) -> np.ndarray:
     """``x`` as a numpy array on the host, in one counted read."""
     global HOST_SYNCS

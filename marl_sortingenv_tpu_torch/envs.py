@@ -40,6 +40,7 @@ from .core import state as S
 from .core import step as ST
 from .core import wrappers as W
 from .models import mlp
+from .utils import profiling
 
 try:
     import gymnasium as gym
@@ -296,6 +297,7 @@ class _EnvBase(gym.Env):
                  show=show, log_dir=log_dir, filename=filename, title=title,
                  fmt=format, checksum=checksum, seed=self.seed_value)
 
+    @profiling.spanned("env.step")
     def _step(self, fn, action, check_overflow=False):
         """Run ``fn(cfg, state, action) -> (state, StepOut)`` (through
         ``with_overflow_termination`` when asked: the reference's
@@ -304,11 +306,12 @@ class _EnvBase(gym.Env):
         5-tuple."""
         act = torch.full((1,), int(action), dtype=torch.int32,
                          device=self.device)
-        if check_overflow:
-            fn = W.with_overflow_termination(self.config, fn, self.name)
-            self.state, out = fn(self.state, act)
-        else:
-            self.state, out = fn(self.config, self.state, act)
+        with profiling.span("env.engine"):
+            if check_overflow:
+                fn = W.with_overflow_termination(self.config, fn, self.name)
+                self.state, out = fn(self.state, act)
+            else:
+                self.state, out = fn(self.config, self.state, act)
         names = _OUT_READ + _STATE_READ + ("press_mask", "obs")
         vals = _read([getattr(out, f)[0] for f in _OUT_READ]
                      + [getattr(self.state, f)[0] for f in _STATE_READ]
@@ -347,6 +350,7 @@ class Env_1_Sorting(_EnvBase):
     def set_agents(self, press_agent=None):
         self.press_agent = _coerce_params(press_agent, self.device)
 
+    @profiling.spanned("env.action_masks")
     def action_masks(self):
         return np.array([True, True])
 
@@ -377,6 +381,7 @@ class Env_2_Pressing(_EnvBase):
     def set_agents(self, sort_agent=None):
         self.sort_agent = _coerce_params(sort_agent, self.device)
 
+    @profiling.spanned("env.action_masks")
     def action_masks(self):
         return self.press_action_masks()
 
@@ -423,6 +428,7 @@ class Env_3_Monolith(_EnvBase):
         self.press_agent = _coerce_params(press_agent, self.device)
         self.mono_agent = _coerce_params(mono_agent, self.device)
 
+    @profiling.spanned("env.action_masks")
     def action_masks(self):
         return self.monolith_action_masks()
 

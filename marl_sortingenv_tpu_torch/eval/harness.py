@@ -34,6 +34,7 @@ from ..core import legacy_random as LR
 from ..core import state as S
 from ..core import step as ST
 from ..models import mlp
+from ..utils import profiling
 
 POLICY_KEYS = ["Random", "Rule-Based", "PPO Sort-Only", "PPO Modular",
                "PPO Monolith"]
@@ -310,19 +311,21 @@ def policy_steps(cfg: SimConfig, policy: str, engine: str = "fastb",
     with torch.no_grad():
         if policy != "PPO Monolith":
             for _ in range(steps):
-                st, out = step(st)
+                with profiling.span("eval.step", policy=policy):
+                    st, out = step(st)
                 yield out
             return
         # the monolith agent acts on the last observation, its logits
         # masked iff masking is on, as the JAX harness's scan does
         obs = mod.get_mono_obs(cfg, st)
         for _ in range(steps):
-            logits = mono_params.policy_logits(obs)
-            if m:
-                logits = mlp.masked_logits(
-                    logits, mod.monolith_action_masks(cfg, st))
-            st, out = mod.step_mono_external(cfg, st,
-                                             FB.agent_argmax(logits), m)
+            with profiling.span("eval.step", policy=policy):
+                logits = mono_params.policy_logits(obs)
+                if m:
+                    logits = mlp.masked_logits(
+                        logits, mod.monolith_action_masks(cfg, st))
+                st, out = mod.step_mono_external(cfg, st,
+                                                 FB.agent_argmax(logits), m)
             obs = out.obs
             yield out
 

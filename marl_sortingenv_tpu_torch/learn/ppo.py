@@ -41,6 +41,7 @@ from ..core import parity as PE
 from ..core import threefry as TF
 from ..models import mlp
 from ..parallel import mesh as M
+from ..utils import profiling
 
 F32, I32 = torch.float32, torch.int32
 
@@ -365,10 +366,13 @@ def collect_rollout(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
     env_state, obs, key = ts.env_state, ts.obs, ts.key
     acc, last_ret = ts.ep_return_acc, ts.last_ep_return
     for t in range(T):
-        mask = masks_of(env_state) if use_action_masking else ones
-        key, sk = TF.split_key(key)
-        action, logp, value = _sample(ts.params, obs, mask, sk, mesh, rows)
-        env_state, out = batched(env_state, action)
+        with profiling.span("rollout.policy"):
+            mask = masks_of(env_state) if use_action_masking else ones
+            key, sk = TF.split_key(key)
+            action, logp, value = _sample(ts.params, obs, mask, sk, mesh,
+                                          rows)
+        with profiling.span("rollout.env"):
+            env_state, out = batched(env_state, action)
         acc = acc + out.reward
         last_ret = torch.where(out.terminated, acc, last_ret)
         acc = torch.where(out.terminated, 0.0, acc)
@@ -505,13 +509,16 @@ def ppo_update(pcfg: PPOConfig, ts: TrainState, trs: Transition,
         perm = perm.reshape(n_mb, mb_blocks)
         mb_stats = []
         for j in range(n_mb):
-            g = packed[:, perm[j]].reshape(-1, mb_size)
-            loss, stats = _loss_fn(model, pcfg, unpack(g))
-            grads = torch.autograd.grad(loss, params)
-            upd, opt_state = optimizer.update(
-                torch.cat([x.reshape(-1) for x in grads]), opt_state)
-            with torch.no_grad():
-                flat.add_(upd)
+            with profiling.span("update.loss"):
+                g = packed[:, perm[j]].reshape(-1, mb_size)
+                loss, stats = _loss_fn(model, pcfg, unpack(g))
+            with profiling.span("update.backward"):
+                grads = torch.autograd.grad(loss, params)
+            with profiling.span("update.optim"):
+                upd, opt_state = optimizer.update(
+                    torch.cat([x.reshape(-1) for x in grads]), opt_state)
+                with torch.no_grad():
+                    flat.add_(upd)
             mb_stats.append(stats)
         epoch_stats.append({k: torch.stack([s[k] for s in mb_stats]).mean()
                             for k in mb_stats[0]})
@@ -538,15 +545,19 @@ def make_train_iteration(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
         M.check_mesh(mesh)
     step_fn = spec.step_fn(sort_policy, use_action_masking)
 
+    @profiling.spanned("learner.iteration")
     def train_iteration(ts: TrainState):
-        ts, trs, last_value = collect_rollout(cfg, pcfg, spec, ts, step_fn,
-                                              use_action_masking, mesh)
-        advantages, returns = compute_gae(pcfg, trs, last_value)
+        with profiling.span("learner.rollout"):
+            ts, trs, last_value = collect_rollout(
+                cfg, pcfg, spec, ts, step_fn, use_action_masking, mesh)
+        with profiling.span("learner.gae"):
+            advantages, returns = compute_gae(pcfg, trs, last_value)
         last_ret = ts.last_ep_return
         if mesh is not None:
             trs, advantages, returns, last_ret = gather_rollout(
                 mesh, trs, advantages, returns, last_ret)
-        ts, stats = ppo_update(pcfg, ts, trs, advantages, returns)
+        with profiling.span("learner.update"):
+            ts, stats = ppo_update(pcfg, ts, trs, advantages, returns)
         stats["mean_episode_return"] = last_ret.mean()
         return ts, stats
 

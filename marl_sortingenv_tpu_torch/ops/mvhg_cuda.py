@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from ..core import fastb as FB
+from ..utils import profiling
 from .sort_cuda import DesignSet, check_operand
 
 LAUNCHES = 0
@@ -77,6 +78,7 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+@profiling.spanned("sort_redistribute.launch")
 def sort_redistribute_kernel(counts, acc, uniforms, support: int,
                              design=None):
     """The redistribution of every env through the kernel (CUDA tensors).

@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import fastb as FB
+from ..utils import profiling
 
 LAUNCHES = 0
 
@@ -155,6 +156,7 @@ def check_operand(name: str, x: torch.Tensor, shape: tuple, dtype,
         raise ValueError(f"{name} must be contiguous")
 
 
+@profiling.spanned("sort_material.launch")
 def sort_material_kernel(counts, acc, keys, support: int, design=None):
     """The sorting core of every env through the kernel (CUDA tensors):
     counts i32[4, N], acc f32[4, N], keys i32[N, 2] -> (leftover, true,

@@ -25,6 +25,7 @@ import torch
 
 from ..config.config import SimConfig
 from ..core import fastb as FB
+from ..utils import profiling
 from .sort_cuda import DESIGN_SET
 
 LAUNCHES = 0
@@ -179,6 +180,7 @@ def _shape(name: str, n: int, E: int, variant: str) -> tuple:
             "obs": (n, _OBS_ROWS.get(variant, 29))}.get(rows, (rows, n))
 
 
+@profiling.spanned("step_mono.launch")
 def step_mono_kernel(cfg: SimConfig, st: FB.BState, action, *, variant: str,
                      masked: bool = True, autoreset: bool = False,
                      design=None):

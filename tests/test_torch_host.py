@@ -151,19 +151,23 @@ def test_wrapper_render_series_equal_harness(tmp_path, monkeypatch):
 
 
 def test_profiling_on_cpu(tmp_path):
-    tp = profiling.Throughput()
-    assert tp.rate() == 0.0
-    tp.start()
-    x = torch.ones(8)
-    with profiling.trace(str(tmp_path)):
-        with profiling.annotate("span_under_test"):
-            for _ in range(5):
-                x = x * 2
-                tp.tick(8, sync=x)
-    assert tp.rate() > 0 and tp._steps == 40
+    """``trace`` writes one Chrome trace holding the block's program spans
+    (a Gym step's, here); ``span`` records only while it profiles."""
+    env = Env_3_Monolith(max_steps=20, seed=3, device="cpu")
+    env.reset(seed=3)
+    with profiling.span("not_traced"):
+        env.step(0)
+    with profiling.trace(str(tmp_path)) as tr:
+        with profiling.span("span_under_test", step=1):
+            env.step(0)
+    assert tr.profiler is not None and tr.window_s > 0
     traces = os.listdir(tmp_path)
     assert len(traces) == 1 and traces[0].endswith(".json")
+    assert tr.path == str(tmp_path / traces[0])
     text = (tmp_path / traces[0]).read_text()
-    assert "span_under_test" in text
-    tp.reset()
-    assert tp.rate() == 0.0
+    for name in ("span_under_test", "env.step", "env.engine"):
+        assert f'"{name}"' in text, name
+    assert "not_traced" not in text
+    names = [r.name for r in profiling.spans()]
+    assert names[:3] == ["span_under_test", "env.step", "env.engine"]
+    assert profiling.summary()["span_under_test"]["count"] == 1
