@@ -190,6 +190,23 @@ def profile_device_us(fn, reps: int, kernel: str, tries: int = 3) -> float:
     raise AssertionError(f"the profiler saw no {kernel} in {tries} traces")
 
 
+def profiled_launches(fn, kernel: str, tries: int = 3) -> int:
+    """How many times the device ran the kernel whose name holds ``kernel``
+    in one call of fn(), as the profiler saw it (a trace that lost the
+    kernel's events is taken again, as in ``profile_device_us``)."""
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen = sum(e.count for e in prof.key_averages() if kernel in e.key
+                   and e.device_type == torch.autograd.DeviceType.CUDA)
+        if seen:
+            return seen
+    return 0
+
+
 def profile_busy(fn):
     """(fn's result, wall us, device busy share, device us by kernel, the
     number of kernels the device ran) of one call of fn() under the
@@ -830,6 +847,7 @@ def diagnose_bench_miss(cfg, policy, engine, agents, dev):
     """Where the card's benchmark mean misses the JAX value: run the policy
     on the card and on the CPU side by side and show that each env whose
     action splits drew at a near-tie.  Returns the near-ties."""
+    from marl_sortingenv_tpu_torch.core import fastb as TB
     from marl_sortingenv_tpu_torch.eval import harness
     gens = {}
     for d in (dev, "cpu"):
@@ -837,6 +855,9 @@ def diagnose_bench_miss(cfg, policy, engine, agents, dev):
         gens[d] = harness.policy_steps(cfg, policy, engine, 10, 200, sp, pp,
                                        mp, True, 1, device=d)
     log = TieLog().install()
+    # the log wraps Python functions, which a replayed graph never calls:
+    # the card's steps run eagerly here
+    graphed, TB.graphed_step = TB.graphed_step, lambda *a, **kw: None
     alive = torch.ones(10, dtype=torch.bool)
     ties = []
     try:
@@ -856,6 +877,7 @@ def diagnose_bench_miss(cfg, policy, engine, agents, dev):
                 ties.append((t, env))
             alive &= ~split
     finally:
+        TB.graphed_step = graphed
         log.remove()
     if not ties:
         raise AssertionError(f"engine benchmark {policy} ({engine}) misses "
@@ -2681,19 +2703,35 @@ def main() -> int:
         # ---- 15a. the engine benchmark against the JAX values ------------
         t1 = time.perf_counter()
         bench = {}
+        # fastb's Random, Sort-Only and Modular steps replay CUDA graphs,
+        # captured at their first call: two steps capture them here, so
+        # that the counted run only replays (a capture's warm-up step
+        # launches kernel 2 once more)
+        harness.run_engine_benchmark(cfg_d, "fastb", 10, 2, *agents,
+                                     device=dev)
         for engine in ("fastb", "fast"):
             before = launch_counts()
+            graphs = TB.GRAPH_CAPTURES, TB.GRAPH_REPLAYS
             res = harness.run_engine_benchmark(
                 cfg_d, engine, 10, 200, *agents, device=dev)
             used = {k: v - before[k] for k, v in launch_counts().items()}
             # kernel 1 carries Rule-Based and Monolith on fastb (events
-            # mode); every other step is eager with kernel 2
+            # mode); every other step is eager with kernel 2, replayed
+            # from a graph on fastb
             want = ({"step_mono": 400, "sort_material": 600}
                     if engine == "fastb" else
                     {"step_mono": 0, "sort_material": 1000})
             if any(used[k] != v for k, v in want.items()):
                 raise AssertionError(f"engine benchmark ({engine}) launched "
                                      f"{used}, expected {want}")
+            replayed = (TB.GRAPH_CAPTURES - graphs[0],
+                        TB.GRAPH_REPLAYS - graphs[1])
+            if replayed != ((0, 600) if engine == "fastb" else (0, 0)):
+                raise AssertionError(f"engine benchmark ({engine}): "
+                                     f"(captures, replays) {replayed}")
+            print(f"phase 15: engine benchmark {engine}, 10 episodes: "
+                  f"launches {used}, graphs (captured, replayed) "
+                  f"{replayed}", flush=True)
             add_launches(main_launches, by_path,
                          "engine benchmark, 10 episodes", used)
             rows = {}
@@ -2709,7 +2747,8 @@ def main() -> int:
                       f"{ref!r}, diff {diff:.3e}"
                       + (f" > {BENCH_TOL}: near-ties {ties}" if ties else
                          f" within {BENCH_TOL}"), flush=True)
-            bench[engine] = {"policies": rows, "launches": used}
+            bench[engine] = {"policies": rows, "launches": used,
+                             "graphs_captured_replayed": replayed}
         slice_report["bench_10x200"] = bench
         print(f"phase 15: 10 episodes x 200 steps on both engines "
               f"({time.perf_counter() - t1:.1f} s)", flush=True)
@@ -2816,7 +2855,15 @@ def main() -> int:
         # the busy share of the first 20 steps (the profiler's own
         # bookkeeping of 200 eager steps takes minutes)
         _, prof_us, busy, by_kernel, n_kern = profile_busy(lambda: run(20))
+        # a replayed step counts its kernel-2 launch from the capture:
+        # the device has to run kernel 2 once in each replay
+        seen = (profiled_launches(lambda: run(20), "sort_material_kernel")
+                if key in harness.GRAPHED else None)
+        if seen not in (None, 20):
+            raise AssertionError(f"engine benchmark {key}: the profiler saw "
+                                 f"kernel 2 {seen} times in 20 replays")
         big[key] = {"wall_s": wall, "env_steps_per_s": n_bench * 200 / wall,
+                    "kernel2_in_20_replays": seen,
                     "mean": float(totals.mean()), "std": float(totals.std()),
                     "launches": used, "profiled_steps": 20,
                     "device_kernels_per_step": n_kern / 20,
@@ -2832,7 +2879,10 @@ def main() -> int:
               f"({prof_us / 1e6:.3f} s), {n_kern / 20:.1f} device kernels "
               f"per step; top device time: "
               + ", ".join(f"{k[:36]} {t / 1e3:.2f} ms"
-                          for k, t in by_kernel[:3]), flush=True)
+                          for k, t in by_kernel[:3])
+              + ("" if seen is None else
+                 f"; graphed: kernel 2 seen {seen} times in 20 replays"),
+              flush=True)
     slice_report["bench_4096x200_fastb"] = big
     report["slice"] = slice_report
     print(f"phase 15: {time.perf_counter() - t1:.1f} s", flush=True)

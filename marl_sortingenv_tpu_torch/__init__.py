@@ -30,6 +30,7 @@ Subpackage map (component parity vs reference documented per module):
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -41,3 +42,21 @@ def resolve_device(device="cuda") -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return dev
+
+
+_CONSTS: dict = {}
+
+
+def const(value, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(value, dtype=dtype, device=device)`` of a host number
+    or sequence, made on the first call and shared by every later one.  On
+    CUDA each ``torch.tensor`` is a blocking copy from pageable memory,
+    which a CUDA graph's capture refuses; a step whose constants come from
+    here makes no copy after its first call.  Values are told apart by
+    their bits (0.0 from -0.0).  Never write to the tensor returned."""
+    a = np.asarray(value)
+    key = (a.dtype.str, a.shape, a.tobytes(), dtype, torch.device(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.tensor(value, dtype=dtype, device=device)
+    return t

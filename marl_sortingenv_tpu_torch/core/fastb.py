@@ -21,19 +21,32 @@ bodies also run on CUDA as the kernels' plain versions
 (``step_cuda.step_mono_plain``, ``eager_step``), and then launch no kernel
 either.
 
+A step is replayed rather than dispatched where the evaluation runs it
+(``eval/harness.policy_steps``, engine ``fastb``): on CUDA the Random,
+PPO Sort-Only and PPO Modular steps (``step_mono_random`` and
+``step_mono_model``, the eager bodies with kernel 2) are captured once per
+step function, configuration, batch, device and agents into a CUDA graph
+(``graphed_step``), which each step then replays with the same kernels and
+the same bits.  Every other step, and every step on the CPU, is dispatched
+op by op as above.
+
 Float constants enter as device tensors, never as Python scalars in a
 division: PyTorch's CUDA ``a / scalar`` multiplies by the reciprocal,
-which would break the bitwise contract between CPU and CUDA.
+which would break the bitwise contract between CPU and CUDA.  They come
+from the package's cache of constants (``const``), made once per value and
+device: a blocking host-to-device copy per step would hold the host, and
+a CUDA graph's capture refuses it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import const, resolve_device
 from ..config.config import SimConfig
 from ..utils import profiling
 from . import threefry as TF
@@ -135,16 +148,17 @@ def _select_state(pred, a: BState, b: BState) -> BState:
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
-    """An f32 constant on ``like``'s device (0-dim or from a sequence)."""
-    return torch.tensor(x, dtype=F32, device=like.device)
+    """An f32 constant on ``like``'s device (0-dim or from a sequence),
+    from the cache of constants: never written to."""
+    return const(x, F32, like.device)
 
 
 def _recip(c, like: torch.Tensor) -> torch.Tensor:
     """``f32(1) / f32(c)`` on ``like``'s device.  The JAX engine runs under
     ``jit``, where XLA rewrites a division by a constant into a product
     with its f32 reciprocal; the port multiplies by the same reciprocal."""
-    return torch.tensor(np.float32(1.0) / np.asarray(c, np.float32),
-                        dtype=F32, device=like.device)
+    return const(np.float32(1.0) / np.asarray(c, np.float32), F32,
+                 like.device)
 
 
 # ---------------------------------------------------------------------------
@@ -377,9 +391,8 @@ def _generate_input(cfg: SimConfig, st: BState):
     row0 = ((st.gen_pattern_first + pattern_idx) % 2 == 0)
     u0, u1, r0, r1 = _pattern_units(cfg)
     dev = st.key.device
-    units = torch.where(row0[None, :],
-                        torch.tensor(u0, dtype=I32, device=dev)[:, None],
-                        torch.tensor(u1, dtype=I32, device=dev)[:, None])
+    units = torch.where(row0[None, :], const(u0, I32, dev)[:, None],
+                        const(u1, I32, dev)[:, None])
     remainder = torch.where(row0, r0, r1).to(I32)
 
     ks = TF.split(st.key)
@@ -518,8 +531,7 @@ def _press_bale(cfg: SimConfig, st: BState, m, n, q, pred) -> BState:
 
     cm = cnt_m[None, None, :]
     new_mask = sel & (lanes >= cm) & (lanes < cm + full[None, None, :])
-    bale_size = torch.where(new_mask, torch.tensor(bs, dtype=I16, device=dev),
-                            st.bale_size)
+    bale_size = torch.where(new_mask, const(bs, I16, dev), st.bale_size)
     bale_qual = torch.where(new_mask, q3, st.bale_qual)
     cnt2 = cnt_m + full                                   # (N,)
 
@@ -1126,3 +1138,142 @@ def mono_autoreset_step(cfg: SimConfig, variant: str,
         return _dispatch(cfg, st, None if variant == "rule" else action,
                          variant, use_action_masking, autoreset=True)
     return stepped
+
+
+# ---------------------------------------------------------------------------
+# Graphed steps: an eager step of a CUDA state, captured once into a CUDA
+# graph and replayed.  The eager bodies launch some 1,700 small device
+# operations a step, each dispatched from Python; a replay launches the same
+# kernels, in the same order, on the same data, with one call.
+# ---------------------------------------------------------------------------
+
+GRAPH_CAPTURES = 0     # graphs captured
+GRAPH_REPLAYS = 0      # steps replayed
+
+_GRAPHS: "dict[tuple, GraphedStep]" = {}
+
+
+def _kernel_counters():
+    from ..ops import mvhg_cuda, sort_cuda, step_cuda
+    return step_cuda, sort_cuda, mvhg_cuda
+
+
+def _store(static: BState, stepped) -> BStepOut:
+    """Write a step's new state into the state it stepped, and return its
+    outputs.  A new leaf or an output that shares memory with that state is
+    copied out first, so that no write clobbers what a later one reads (the
+    step hands leaves on: the belt's counts become the sorter's)."""
+    new, out = stepped
+    held = {x.untyped_storage().data_ptr() for x in static if x is not None}
+
+    def own(x):
+        return x.clone() if x.untyped_storage().data_ptr() in held else x
+    out = BStepOut(*map(own, out))
+    writes = [(s, own(x)) for s, x in zip(static, new)
+              if s is not None and x is not s]
+    for s, x in writes:
+        s.copy_(x)
+    return out
+
+
+class GraphedStep:
+    """``fn(cfg, state, *args) -> (state, BStepOut)`` on a CUDA ``BState``,
+    captured once into a CUDA graph that also writes the new state back
+    into its input state.  ``load(st)`` sets that state (the capture leaves
+    it a step past ``st``), and each ``step()`` is one replay.  The graph
+    replays the kernels the capture recorded on the memory it recorded:
+    ``args`` (agents included) are held, and a replay reads their
+    parameters as they are then."""
+
+    def __init__(self, cfg: SimConfig, fn, args: tuple, st: BState,
+                 body: str):
+        self.body, self.busy = body, False
+        self.state = BState(*(None if x is None else x.clone() for x in st))
+        self._args = args      # the graph reads their memory
+        self.graph, self.out, self.launches = self._capture(
+            lambda: _store(self.state, fn(cfg, self.state, *args)))
+
+    def _capture(self, run):
+        """Warm up on a side stream (lazy set-up stays outside the
+        capture), then capture; the kernel launches the capture recorded
+        are taken off the launch counters, which each replay adds them to."""
+        global GRAPH_CAPTURES
+        dev = self.state.key.device
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                run()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            mods = _kernel_counters()
+            before = [m.LAUNCHES for m in mods]
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                out = run()
+            launches = [m.LAUNCHES - n for m, n in zip(mods, before)]
+            for m, n in zip(mods, before):
+                m.LAUNCHES = n
+        GRAPH_CAPTURES += 1
+        return graph, out, launches
+
+    def load(self, st: BState) -> None:
+        """Copy ``st`` into the graph's input state."""
+        for s, x in zip(self.state, st):
+            if s is not None:
+                s.copy_(x)
+
+    @contextlib.contextmanager
+    def loaded(self, st: BState):
+        """The stepper at ``st``, held as in use (``graphed_step`` hands it
+        to no one else) until the block ends."""
+        self.load(st)
+        self.busy = True
+        try:
+            yield self
+        finally:
+            self.busy = False
+
+    def step(self) -> BStepOut:
+        """One step: a replay, then the outputs as fresh tensors (the next
+        replay overwrites the graph's own)."""
+        global GRAPH_REPLAYS
+        with profiling.span("fastb.eager", body=self.body, graph=True):
+            self.graph.replay()
+            out = BStepOut(*(x.clone() for x in self.out))
+        GRAPH_REPLAYS += 1
+        for m, k in zip(_kernel_counters(), self.launches):
+            m.LAUNCHES += k
+        return out
+
+
+def _graph_key(arg):
+    """An agent keys a graph by its parameters' storages, anything else by
+    itself."""
+    if isinstance(arg, torch.nn.Module):
+        return tuple((p.data_ptr(), tuple(p.shape), p.dtype)
+                     for p in arg.parameters())
+    return arg
+
+
+def graphed_step(cfg: SimConfig, fn, args: tuple, st: BState,
+                 body: str) -> Optional[GraphedStep]:
+    """The graphed stepper of ``fn(cfg, st, *args)`` for states of
+    ``st``'s batch and device, captured at its first request and kept, with
+    its agents, for the life of the process: an evaluation keeps three, and
+    a caller that loads new agents for each evaluation adds two more each
+    time.  It is keyed on the step function itself (a patched one is
+    captured anew), the configuration, the batch, the device, ``args`` (an
+    agent by its parameters' storages) and whether products may run in
+    TF32.  ``body`` names the step in its ``fastb.eager`` spans.
+    Returns None while the stepper of that key is in use: its input state
+    is taken, and the caller steps eagerly."""
+    key = (fn, cfg, tuple(st.key.shape), st.key.device,
+           tuple(map(_graph_key, args)),
+           torch.backends.cuda.matmul.allow_tf32)
+    g = _GRAPHS.get(key)
+    if g is None:
+        g = _GRAPHS[key] = GraphedStep(cfg, fn, args, st, body)
+    elif g.busy:
+        return None
+    return g

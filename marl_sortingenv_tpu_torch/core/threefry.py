@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import const, resolve_device
 
 _MASK = 0xFFFFFFFF
 _ROT_EVEN = (13, 15, 26, 6)
@@ -127,10 +127,8 @@ def uniform4(keys: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     jax computes ``max(lo, u01 * (hi - lo) + lo)`` with the span as an f32
     subtraction, and XLA on the CPU fuses the multiply-add."""
     u01 = bits_to_unit(bits(keys, 4))
-    dev = keys.device
-    lo32 = torch.tensor(lo, dtype=torch.float32, device=dev)
-    hi32 = torch.tensor(hi, dtype=torch.float32, device=dev)
-    span = hi32 - lo32
+    lo32 = const(np.float32(lo), torch.float32, keys.device)
+    span = const(np.float32(hi) - np.float32(lo), torch.float32, keys.device)
     return torch.maximum(lo32, fma_f32(u01, span.expand_as(u01),
                                        lo32.expand_as(u01)))
 
@@ -190,11 +188,10 @@ def _perturbed(b: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     ``jax.random.gumbel``'s default ``'low'`` mode: ``g = -log(-log(u))``
     with ``u = max(tiny, u01 * (1 - tiny) + tiny)`` (the mul-add rounded
     once, as XLA fuses it)."""
-    dev = logits.device
     u01 = bits_to_unit(b)
-    lo = torch.tensor(torch.finfo(torch.float32).tiny, dtype=torch.float32,
-                      device=dev)
-    span = torch.tensor(1.0, dtype=torch.float32, device=dev) - lo
+    tiny = np.float32(torch.finfo(torch.float32).tiny)
+    lo = const(tiny, torch.float32, logits.device)
+    span = const(np.float32(1.0) - tiny, torch.float32, logits.device)
     u = torch.maximum(lo, fma_f32(u01, span.expand_as(u01),
                                   lo.expand_as(u01)))
     return -torch.log(-torch.log(u)) + logits.float()

@@ -280,6 +280,12 @@ def compare_engine_drift(cfg: SimConfig, num_seeds: int = 10,
     return table
 
 
+# the eager steps of the evaluation that replay from a CUDA graph on fastb
+# (``FB.graphed_step``), by policy: the name of their body's span
+GRAPHED = {"Random": "random", "PPO Sort-Only": "model",
+           "PPO Modular": "model"}
+
+
 def policy_steps(cfg: SimConfig, policy: str, engine: str = "fastb",
                  num_episodes: int = 10, steps: int = 200,
                  sort_params=None, press_params=None, mono_params=None,
@@ -287,32 +293,45 @@ def policy_steps(cfg: SimConfig, policy: str, engine: str = "fastb",
                  device="cuda"):
     """The step outputs, one per step, of ``num_episodes`` lockstep
     episodes of one policy of ``POLICY_KEYS`` on ``engine``: the episodes
-    reset from ``seed0`` and step ``steps`` times without autoreset."""
+    reset from ``seed0`` and step ``steps`` times without autoreset.  On
+    ``fastb`` with CUDA the steps of ``GRAPHED`` replay a CUDA graph,
+    captured at the first call for the policy's step, configuration,
+    batch and agents; each output is a tensor of its own."""
     mod = {"fast": FE, "fastb": FB}[engine]
     dev = resolve_device(device)
     m = use_action_masking
-    if policy == "Random":
-        step = lambda s: mod.step_mono_random(cfg, s, m)  # noqa: E731
-    elif policy == "Rule-Based":
-        step = lambda s: mod.step_mono_rule(cfg, s)  # noqa: E731
-    elif policy == "PPO Sort-Only":
-        step = lambda s: mod.step_mono_model(  # noqa: E731
-            cfg, s, sort_params, None, m)
-    elif policy == "PPO Modular":
-        step = lambda s: mod.step_mono_model(  # noqa: E731
-            cfg, s, sort_params, press_params, m)
-    elif policy == "PPO Monolith":
+    # each policy's step but the monolith agent's: its name on the engine
+    # and its arguments after the state
+    named = {"Random": ("step_mono_random", (m,)),
+             "Rule-Based": ("step_mono_rule", ()),
+             "PPO Sort-Only": ("step_mono_model", (sort_params, None, m)),
+             "PPO Modular": ("step_mono_model",
+                             (sort_params, press_params, m))}
+    if policy == "PPO Monolith":
         if mono_params is None:
             raise ValueError("the PPO Monolith policy needs mono_params")
-    else:
+    elif policy not in named:
         raise ValueError(f"unknown policy {policy!r}")
 
     st = mod.reset_batch(cfg, seed0, num_episodes, device=dev)
     with torch.no_grad():
         if policy != "PPO Monolith":
+            name, args = named[policy]
+            step = getattr(mod, name)
+            graphed = None
+            if mod is FB and dev.type == "cuda" and policy in GRAPHED:
+                graphed = FB.graphed_step(cfg, step, args, st,
+                                          GRAPHED[policy])
+            if graphed is not None:
+                with graphed.loaded(st):
+                    for _ in range(steps):
+                        with profiling.span("eval.step", policy=policy):
+                            out = graphed.step()
+                        yield out
+                return
             for _ in range(steps):
                 with profiling.span("eval.step", policy=policy):
-                    st, out = step(st)
+                    st, out = step(cfg, st, *args)
                 yield out
             return
         # the monolith agent acts on the last observation, its logits

@@ -286,6 +286,39 @@ def test_traced_cpu_step_records_every_span(case):
         assert len(policies) == 10 and len(set(policies)) == 5
 
 
+def test_replayed_step_records_one_graph_span():
+    """A graphed step (``fastb.GraphedStep``) records one ``fastb.eager``
+    span per replay, with its body and ``graph=True``, counts the replay
+    and the kernel launches its capture recorded, and hands out outputs of
+    their own.  Without a card the graph here replays nothing: its capture
+    runs the step once, eagerly, outside the profiler."""
+    from types import SimpleNamespace
+
+    from marl_sortingenv_tpu_torch.config.config import load_config
+    from marl_sortingenv_tpu_torch.core import fastb as FB
+    from marl_sortingenv_tpu_torch.ops import sort_cuda
+
+    class Unreplayed(FB.GraphedStep):
+        def _capture(self, run):
+            return SimpleNamespace(replay=lambda: None), run(), [0, 1, 0]
+    cfg = load_config(**_sim("plant_noise05")["sim"])
+    st = FB.reset_batch(cfg, 3, 4, device="cpu")
+    g = Unreplayed(cfg, FB.step_mono_random, (True,), st, "random")
+    replays, launches = FB.GRAPH_REPLAYS, sort_cuda.LAUNCHES
+    with torch.profiler.profile():
+        with g.loaded(st):
+            assert g.busy
+            out = g.step()
+    assert not g.busy
+    (rec,) = P.spans()
+    assert rec.name == "fastb.eager"
+    assert rec.attrs == {"body": "random", "graph": True}
+    assert FB.GRAPH_REPLAYS == replays + 1
+    assert sort_cuda.LAUNCHES == launches + 1
+    for a, b in zip(out, g.out):
+        assert torch.equal(a, b) and a.data_ptr() != b.data_ptr()
+
+
 # -- on the card --------------------------------------------------------------
 
 @pytest.fixture
