@@ -2115,8 +2115,9 @@ def phase_sharded(dev, main_launches, by_path) -> dict:
     """Phase 19, data parallelism on ``fastb`` at the JAX benchmark's
     width (4096 global envs, 64 steps, minibatches of 16384, 4 epochs):
     five sharded PPO iterations (320 steps, across the episode's end at
-    200) over 1 rank (NCCL) and over 2 ranks on the one card (gloo, staged
-    through host memory: NCCL refuses two ranks on one card), each rank
+    200) over 1 rank (NCCL), over 2 ranks on the one card (gloo, staged
+    through host memory: NCCL refuses two ranks on one card) and, where
+    four cards are present, over 4 ranks, one per card (NCCL), each rank
     stepping its shard with kernel 1, held bitwise to its plain version on
     the shard in the first and the last ``dryrun.HOLD`` steps of each of
     the first four rollouts (the fifth is timed); the parameters and loss
@@ -2141,7 +2142,10 @@ def phase_sharded(dev, main_launches, by_path) -> dict:
     rep = {"unsharded_iteration_s": unsharded_s, "runs": {}}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    for world, backend in ((1, "nccl"), (2, "gloo")):
+    worlds = [(1, "nccl"), (2, "gloo")]
+    if torch.cuda.device_count() >= 4:
+        worlds.append((4, "nccl"))
+    for world, backend in worlds:
         res = run_dryrun(world, backend, out_dir / f"dryrun_{world}.npz")
         for leg in ("train", "press"):
             for k, v in want[leg].items():

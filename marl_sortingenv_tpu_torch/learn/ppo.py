@@ -40,6 +40,7 @@ from ..core import fastb as FB
 from ..core import parity as PE
 from ..core import threefry as TF
 from ..models import mlp
+from ..parallel import distributed as DI
 from ..parallel import mesh as M
 from ..utils import profiling
 
@@ -265,14 +266,31 @@ def make_optimizer(pcfg: PPOConfig) -> ClipAdam:
 
 def init_train_state(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
                      n_envs: int, seed: int = 42, env_seed0: int = 0,
-                     device="cuda") -> TrainState:
+                     device="cuda", mesh=None) -> TrainState:
     """A fresh train state, as the JAX learner makes it: ``PRNGKey(seed)``
     splits into the learner's key chain and the key of the initial weights
-    (``mlp.init_params``)."""
+    (``mlp.init_params``).
+
+    ``mesh`` (a ``parallel.mesh`` DeviceMesh; ``fastb`` only): this rank's
+    dp shard of the state over ``n_envs`` global envs, built without the
+    global batch and equal to ``parallel.fastb_shard.shard_train_state``
+    of the unsharded state: the parameters, the optimizer state, the key
+    and the update count whole; the env state the rank's rows of the global
+    reset (``parallel.distributed.make_global_bstate``), and the obs and
+    the return accumulators cut to them."""
     dev = resolve_device(device)
     key, pkey = TF.split_key(TF.prng_key(seed, device="cpu"))
     params = mlp.init_params(pkey, spec.obs_dim, spec.n_actions, device=dev)
-    env_state = spec.reset_batch(cfg, n_envs, env_seed0, device=dev)
+    if mesh is None:
+        env_state = spec.reset_batch(cfg, n_envs, env_seed0, device=dev)
+        n_local = n_envs
+    else:
+        if spec.engine != "fastb":
+            raise ValueError("a sharded train state is built on the fastb "
+                             f"engine only, not {spec.engine!r}")
+        env_state = DI.make_global_bstate(cfg, env_seed0, n_envs,
+                                          M.check_mesh(mesh), device=dev)
+        n_local = env_state.key.shape[0]
     acc = _return_dtype(spec)
     return TrainState(
         params=params,
@@ -280,8 +298,8 @@ def init_train_state(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
         env_state=env_state,
         obs=spec.batched_obs(cfg)(env_state),
         key=key,
-        ep_return_acc=torch.zeros(n_envs, dtype=acc, device=dev),
-        last_ep_return=torch.zeros(n_envs, dtype=acc, device=dev),
+        ep_return_acc=torch.zeros(n_local, dtype=acc, device=dev),
+        last_ep_return=torch.zeros(n_local, dtype=acc, device=dev),
         update_count=torch.zeros((), dtype=I32, device=dev),
     )
 
@@ -534,8 +552,8 @@ def make_train_iteration(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
                          mesh=None):
     """One PPO iteration ``ts -> (ts, stats)``: rollout + GAE + update.
 
-    ``mesh`` (a ``parallel.mesh`` DeviceMesh; ``ts`` a rank's shard from
-    ``parallel.fastb_shard.shard_train_state``): each rank steps its env
+    ``mesh`` (a ``parallel.mesh`` DeviceMesh; ``ts`` a rank's shard, from
+    ``init_train_state(mesh=)``): each rank steps its env
     shard and runs GAE on it, the transitions are gathered over dp, and
     every rank runs the same update on the global batch with its replicated
     parameters.  The parameters and the loss stats are then bitwise those
@@ -554,8 +572,9 @@ def make_train_iteration(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
             advantages, returns = compute_gae(pcfg, trs, last_value)
         last_ret = ts.last_ep_return
         if mesh is not None:
-            trs, advantages, returns, last_ret = gather_rollout(
-                mesh, trs, advantages, returns, last_ret)
+            with profiling.span("learner.gather"):
+                trs, advantages, returns, last_ret = gather_rollout(
+                    mesh, trs, advantages, returns, last_ret)
         with profiling.span("learner.update"):
             ts, stats = ppo_update(pcfg, ts, trs, advantages, returns)
         stats["mean_episode_return"] = last_ret.mean()

@@ -11,13 +11,17 @@ and builds only its own env shard with ``make_global_env_state`` (the
 parity engine) or ``make_global_bstate`` (``fastb``); each shard equals
 the slice of the global reset.  Nothing tells a program of a cluster, so
 the caller names the coordinator (or a launcher such as ``torchrun`` sets
-``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``).
+``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``).  Under
+NCCL each process takes the card of its ``LOCAL_RANK`` (else of its rank
+modulo the cards present) before the group starts: NCCL refuses two
+ranks on one card.
 """
 
 from __future__ import annotations
 
+import datetime
 import os
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -33,7 +37,9 @@ def _default_backend() -> str:
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               backend: Optional[str] = None) -> None:
+               backend: Optional[str] = None,
+               timeout: Union[float, datetime.timedelta, None] = None
+               ) -> None:
     """Start the process group, so that one program runs as one process
     or as many:
 
@@ -44,28 +50,50 @@ def initialize(coordinator_address: Optional[str] = None,
     * neither, on a plain machine: a group of one process (an in-memory
       store, no port).
 
-    ``backend`` defaults to NCCL where CUDA is present, else gloo.  A group
-    already started is left as it is.  Errors are raised, not swallowed."""
+    ``backend`` defaults to NCCL where CUDA is present, else gloo.  In a
+    group of several processes under NCCL, the process first takes its
+    card (``_take_card``).  ``timeout`` (seconds, or a timedelta) bounds
+    the start and every collective of the group: a collective whose peer
+    died raises (gloo) or ends the process (NCCL's watchdog) instead of
+    waiting for ever; None keeps torch's default.  A group already started
+    is left as it is.  Errors are raised, not swallowed."""
     if dist.is_initialized():
         return
     backend = backend or _default_backend()
+    kw = {}
+    if timeout is not None:
+        kw["timeout"] = (timeout if isinstance(timeout, datetime.timedelta)
+                         else datetime.timedelta(seconds=timeout))
     if coordinator_address is not None:
         if num_processes is None or process_id is None:
             raise ValueError("a coordinator needs num_processes and "
                              "process_id")
         url = (coordinator_address if "://" in coordinator_address
                else f"tcp://{coordinator_address}")
+        if backend == "nccl":
+            _take_card(process_id)
         dist.init_process_group(backend, init_method=url,
-                                world_size=num_processes, rank=process_id)
+                                world_size=num_processes, rank=process_id,
+                                **kw)
         return
     if num_processes is not None and num_processes > 1:
         raise ValueError(
             "coordinator_address is required for multi-process init")
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        dist.init_process_group(backend, init_method="env://")
+        if backend == "nccl":
+            _take_card(int(os.environ["RANK"]))
+        dist.init_process_group(backend, init_method="env://", **kw)
         return
     dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                            world_size=1)
+                            world_size=1, **kw)
+
+
+def _take_card(rank: int) -> None:
+    """Make this process's card current: the card of ``LOCAL_RANK`` (a
+    launcher's rank on this host), else of ``rank`` modulo the cards
+    present."""
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    torch.cuda.set_device(local % torch.cuda.device_count())
 
 
 def global_mesh(tp: int = 1):

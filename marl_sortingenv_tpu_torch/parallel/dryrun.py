@@ -265,21 +265,15 @@ def _sharded_rollout(mesh, leg, args, device) -> dict:
 
 
 def _sharded_train(mesh, args, device) -> dict:
-    from . import distributed as DI
     cfg, pcfg = _cfgs(args)
     held = max(1, args.iterations - 1)     # the last one timed alone
     spec = HeldMonoSpec(**dataclasses.asdict(
         ppo.spec_for("mono", engine="fastb")), n_steps=pcfg.n_steps,
         rollouts=held)
-    n = args.n_envs
     # every rank draws the same parameters and key; the env state is its
-    # own shard, built alone (make_global_bstate), not cut from a global one
-    ts = ppo.init_train_state(cfg, pcfg, spec, 1, device=device)
-    env = DI.make_global_bstate(cfg, 0, n, mesh, device)
-    acc = torch.zeros(env.key.shape[0], dtype=ts.ep_return_acc.dtype,
-                      device=device)
-    ts = ts._replace(env_state=env, obs=spec.batched_obs(cfg)(env),
-                     ep_return_acc=acc, last_ep_return=acc.clone())
+    # own shard, built alone, not cut from a global one
+    ts = ppo.init_train_state(cfg, pcfg, spec, args.n_envs, device=device,
+                              mesh=mesh)
     it = ppo.make_train_iteration(cfg, pcfg, spec, mesh=mesh)
     for _ in range(args.iterations):        # the last one is timed
         if device.type == "cuda":
@@ -380,7 +374,8 @@ def _worker(rank: int, world: int, port: int, args) -> None:
     if device.type == "cuda":
         torch.cuda.set_device(rank % torch.cuda.device_count())
         device = torch.device("cuda", torch.cuda.current_device())
-    DI.initialize(f"localhost:{port}", world, rank, backend=args.backend)
+    DI.initialize(f"localhost:{port}", world, rank, backend=args.backend,
+                  timeout=args.timeout)
     try:
         results = dryrun_multichip(args, world, device)
         # each rank's kernel launches and held steps per leg

@@ -19,6 +19,12 @@ The port of ``marl_sortingenv_tpu.parallel.mesh``.  A mesh is a
 Unlike XLA, PyTorch has no single-process virtual mesh: a mesh of n ranks
 needs n processes (``parallel/distributed.py`` starts the process group,
 ``parallel/dryrun.py`` spawns them).
+
+``GATHERS`` counts the all-gathers over more than one dp rank, and
+``GATHER_BYTES`` the bytes this rank received in them: (dp - 1) times its
+own shard's bytes as they went on the wire.  Each runs inside the span
+``dp.all_gather`` (``utils/profiling.py``), whose attribute ``bytes`` is
+that count.
 """
 
 from __future__ import annotations
@@ -29,6 +35,11 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from ..utils import profiling
+
+GATHERS = 0
+GATHER_BYTES = 0
 
 # Placement classes live in torch.distributed.tensor (imported lazily in
 # the functions that need them: DTensor's import is slow)
@@ -164,17 +175,22 @@ def all_gather_dp(mesh: DeviceMesh, x: torch.Tensor, dim: int
     order: the global tensor, on every rank.  Under gloo a CUDA tensor is
     staged through host memory (gloo's all-gather takes CPU tensors);
     bools travel as uint8 and int16 as int32 (gloo has neither), exactly."""
+    global GATHERS, GATHER_BYTES
     n = dp_size(mesh)
     if n == 1:
         return x
     group = dp_group(mesh)
     staged = dist.get_backend(group) == "gloo" and x.is_cuda
-    y = x.cpu() if staged else x
-    wire = {torch.bool: torch.uint8, torch.int16: torch.int32}.get(y.dtype)
-    if wire is not None:
-        y = y.to(wire)
-    y = y.contiguous()
-    parts = [torch.empty_like(y) for _ in range(n)]
-    dist.all_gather(parts, y, group=group)
-    out = torch.cat(parts, dim=dim).to(x.dtype)
-    return out.to(x.device) if staged else out
+    wire = {torch.bool: torch.uint8, torch.int16: torch.int32}.get(x.dtype)
+    received = (n - 1) * x.numel() * (wire or x.dtype).itemsize
+    GATHERS += 1
+    GATHER_BYTES += received
+    with profiling.span("dp.all_gather", bytes=received):
+        y = x.cpu() if staged else x
+        if wire is not None:
+            y = y.to(wire)
+        y = y.contiguous()
+        parts = [torch.empty_like(y) for _ in range(n)]
+        dist.all_gather(parts, y, group=group)
+        out = torch.cat(parts, dim=dim).to(x.dtype)
+        return out.to(x.device) if staged else out
