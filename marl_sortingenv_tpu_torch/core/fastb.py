@@ -27,8 +27,9 @@ PPO Sort-Only and PPO Modular steps (``step_mono_random`` and
 ``step_mono_model``, the eager bodies with kernel 2) are captured once per
 step function, configuration, batch, device and agents into a CUDA graph
 (``graphed_step``), which each step then replays with the same kernels and
-the same bits.  Every other step, and every step on the CPU, is dispatched
-op by op as above.
+the same bits.  The learner's rollout (``learn/ppo.py``, ``GraphedRollout``)
+likewise replays its whole step, policy included, on CUDA.  Every other
+step, and every step on the CPU, is dispatched op by op as above.
 
 Float constants enter as device tensors, never as Python scalars in a
 division: PyTorch's CUDA ``a / scalar`` multiplies by the reciprocal,
@@ -1158,22 +1159,70 @@ def _kernel_counters():
     return step_cuda, sort_cuda, mvhg_cuda
 
 
-def _store(static: BState, stepped) -> BStepOut:
-    """Write a step's new state into the state it stepped, and return its
-    outputs.  A new leaf or an output that shares memory with that state is
-    copied out first, so that no write clobbers what a later one reads (the
-    step hands leaves on: the belt's counts become the sorter's)."""
-    new, out = stepped
+def copy_leaves(dst, src) -> None:
+    """``d.copy_(s)`` for each pair whose ``d`` is not None, as one
+    multi-tensor copy per pair of dtypes: a CUDA graph records a few
+    copies, not one per leaf."""
+    groups: dict = {}
+    for d, s in zip(dst, src):
+        if d is None:
+            continue
+        ds, ss = groups.setdefault((d.dtype, s.dtype), ([], []))
+        ds.append(d)
+        ss.append(s)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
+
+
+def _store(static, new, keep=()) -> tuple:
+    """Write each leaf of ``new`` into the leaf of ``static`` at its place
+    (None leaves, and leaves that are the static one, are skipped), and
+    return ``keep``.  A new leaf, or a kept tensor, that shares memory with
+    ``static`` is copied out first, so that no write clobbers what a later
+    one reads (a step hands leaves on: the belt's counts become the
+    sorter's)."""
     held = {x.untyped_storage().data_ptr() for x in static if x is not None}
 
     def own(x):
         return x.clone() if x.untyped_storage().data_ptr() in held else x
-    out = BStepOut(*map(own, out))
+    keep = tuple(map(own, keep))
     writes = [(s, own(x)) for s, x in zip(static, new)
               if s is not None and x is not s]
-    for s, x in writes:
-        s.copy_(x)
-    return out
+    if writes:
+        copy_leaves(*zip(*writes))
+    return keep
+
+
+def capture_graph(device, run):
+    """``run()`` warmed up once on a side stream (lazy set-up stays outside
+    the capture), then captured into a CUDA graph: (the graph, what the
+    captured ``run()`` returned, the kernel launches the capture recorded).
+    The warm-up runs for real and its launches count; the capture's are
+    taken off the launch counters, which ``count_launches`` adds them to at
+    each replay."""
+    with torch.cuda.device(device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            run()
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        mods = _kernel_counters()
+        before = [m.LAUNCHES for m in mods]
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            out = run()
+        launches = [m.LAUNCHES - n for m, n in zip(mods, before)]
+        for m, n in zip(mods, before):
+            m.LAUNCHES = n
+    return graph, out, launches
+
+
+def count_launches(launches) -> None:
+    """Add one replay's kernel launches (``capture_graph``'s record) to the
+    launch counters."""
+    for m, k in zip(_kernel_counters(), launches):
+        m.LAUNCHES += k
 
 
 class GraphedStep:
@@ -1187,41 +1236,23 @@ class GraphedStep:
 
     def __init__(self, cfg: SimConfig, fn, args: tuple, st: BState,
                  body: str):
+        global GRAPH_CAPTURES
         self.body, self.busy = body, False
         self.state = BState(*(None if x is None else x.clone() for x in st))
         self._args = args      # the graph reads their memory
-        self.graph, self.out, self.launches = self._capture(
-            lambda: _store(self.state, fn(cfg, self.state, *args)))
+
+        def run():
+            new, out = fn(cfg, self.state, *args)
+            return BStepOut(*_store(self.state, new, out))
+        self.graph, self.out, self.launches = self._capture(run)
+        GRAPH_CAPTURES += 1
 
     def _capture(self, run):
-        """Warm up on a side stream (lazy set-up stays outside the
-        capture), then capture; the kernel launches the capture recorded
-        are taken off the launch counters, which each replay adds them to."""
-        global GRAPH_CAPTURES
-        dev = self.state.key.device
-        with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                run()
-            torch.cuda.current_stream(dev).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            mods = _kernel_counters()
-            before = [m.LAUNCHES for m in mods]
-            with torch.cuda.graph(graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                out = run()
-            launches = [m.LAUNCHES - n for m, n in zip(mods, before)]
-            for m, n in zip(mods, before):
-                m.LAUNCHES = n
-        GRAPH_CAPTURES += 1
-        return graph, out, launches
+        return capture_graph(self.state.key.device, run)
 
     def load(self, st: BState) -> None:
         """Copy ``st`` into the graph's input state."""
-        for s, x in zip(self.state, st):
-            if s is not None:
-                s.copy_(x)
+        copy_leaves(self.state, st)
 
     @contextlib.contextmanager
     def loaded(self, st: BState):
@@ -1242,8 +1273,7 @@ class GraphedStep:
             self.graph.replay()
             out = BStepOut(*(x.clone() for x in self.out))
         GRAPH_REPLAYS += 1
-        for m, k in zip(_kernel_counters(), self.launches):
-            m.LAUNCHES += k
+        count_launches(self.launches)
         return out
 
 

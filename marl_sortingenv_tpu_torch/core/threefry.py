@@ -168,6 +168,26 @@ def split_key(key, num: int = 2) -> torch.Tensor:
     return _i32(torch.tensor(rows, dtype=torch.int64))
 
 
+def split_chain(key, n: int):
+    """``n`` successive ``key, sub = split_key(key)``, on Python ints: (the
+    key after them, int32[2] on the CPU; the ``n`` subkeys' u32 word
+    pairs, in order)."""
+    k, subs = key_words(key), []
+    for _ in range(n):
+        k, sub = threefry2x32(*k, 0, 0), threefry2x32(*k, 0, 1)
+        subs.append(sub)
+    return _i32(torch.tensor(k, dtype=torch.int64)), subs
+
+
+def _bits_of(k0, k1, shape, device, offset: int) -> torch.Tensor:
+    shape = tuple(shape)
+    size = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    idx = torch.arange(offset, offset + size, dtype=torch.int64,
+                       device=device)
+    o0, o1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK)
+    return (o0 ^ o1).reshape(shape)
+
+
 def random_bits(key, shape, device="cuda", offset: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (32-bit) of one key, as int64 u32
     values: word i of the flat shape is ``o0 ^ o1`` of the block with the
@@ -175,12 +195,16 @@ def random_bits(key, shape, device="cuda", offset: int = 0) -> torch.Tensor:
     With ``offset`` the words are those of flat indices offset, offset +
     1, ... of a larger draw: a shard's slice of it, and only that."""
     k0, k1 = key_words(key)
-    shape = tuple(shape)
-    size = int(np.prod(shape, dtype=np.int64)) if shape else 1
-    idx = torch.arange(offset, offset + size, dtype=torch.int64,
-                       device=resolve_device(device))
-    o0, o1 = threefry2x32(k0, k1, idx >> 32, idx & _MASK)
-    return (o0 ^ o1).reshape(shape)
+    return _bits_of(k0, k1, shape, resolve_device(device), offset)
+
+
+def random_bits_at(words: torch.Tensor, shape,
+                   offset: int = 0) -> torch.Tensor:
+    """``random_bits`` of the key whose two u32 words the int64[2] tensor
+    ``words`` holds, drawn on its device: the same integer arithmetic with
+    the words read from device memory instead of passed as host ints, so
+    that a CUDA graph can take a new key at each replay."""
+    return _bits_of(words[0], words[1], shape, words.device, offset)
 
 
 def _perturbed(b: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
@@ -206,6 +230,14 @@ def categorical(key, logits: torch.Tensor, row0: int = 0) -> torch.Tensor:
     batch, and the draw is that batch's draw for them (a shard's slice)."""
     b = random_bits(key, logits.shape, logits.device,
                     offset=row0 * logits.shape[-1])
+    return torch.argmax(_perturbed(b, logits), dim=-1)
+
+
+def categorical_at(words: torch.Tensor, logits: torch.Tensor,
+                   row0: int = 0) -> torch.Tensor:
+    """``categorical`` of the key whose words ``words`` holds on the
+    device (``random_bits_at``): the same draw, bit for bit."""
+    b = random_bits_at(words, logits.shape, offset=row0 * logits.shape[-1])
     return torch.argmax(_perturbed(b, logits), dim=-1)
 
 

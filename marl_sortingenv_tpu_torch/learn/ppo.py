@@ -14,7 +14,9 @@ bitwise (``tests/test_torch_ppo.py``): products and reductions round
 differently in PyTorch and XLA.
 
 What replaces JAX's machinery: the rollout ``lax.scan`` is a Python loop
-over ``n_steps`` (a fastb env step is one kernel launch on CUDA), the update
+over ``n_steps`` (a fastb env step is one kernel launch on CUDA; on CUDA
+without a mesh each step of a ``fastb`` rollout, policy included, is one
+replay of a captured CUDA graph, ``GraphedRollout``), the update
 scans are Python loops over epochs and minibatches with ``torch.autograd``
 for the gradient, and ``optax``'s ``flatten(chain(clip_by_global_norm,
 adam))`` is ``ClipAdam`` over ONE flattened parameter vector.  The
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -114,13 +117,17 @@ class VariantSpec:
     def step_fn(self, sort_policy=None, use_action_masking=True):
         """``(cfg, st, action) -> (st, out)``.  ``sort_policy`` (press only)
         is a frozen sort agent, an ``ActorCritic`` (see
-        ``fastb.step_press``)."""
+        ``fastb.step_press``), which the press step carries as its
+        ``_agents`` (a rollout graph is keyed on their storages)."""
         mod = self._mod()
         if self.name == "sort":
             return mod.step_sort
         if self.name == "press":
-            return lambda cfg, st, a: mod.step_press(
-                cfg, st, a, sort_policy, use_action_masking)
+            def p(cfg, st, a):
+                return mod.step_press(cfg, st, a, sort_policy,
+                                      use_action_masking)
+            p._agents = () if sort_policy is None else (sort_policy,)
+            return p
 
         def f(cfg, st, a):
             return mod.step_mono_external(cfg, st, a, use_action_masking)
@@ -338,17 +345,175 @@ def _forward(params: mlp.ActorCritic, obs, mesh=None, rows=None):
     return logits, value
 
 
-def _sample(params: mlp.ActorCritic, obs, mask, key, mesh=None, rows=None):
-    """Masked categorical sample + logp + value (batch).  With a mesh the
-    batch is this rank's rows ``rows`` of the global one, whose draw it
-    takes (``_forward``)."""
+def _sample(params: mlp.ActorCritic, obs, mask, draw, mesh=None,
+            rows=None):
+    """Masked categorical sample + logp + value (batch); ``draw(logits)``
+    is the categorical draw (``threefry.categorical`` of the step's key, or
+    ``categorical_at`` of its words on the device).  With a mesh the batch
+    is this rank's rows ``rows`` of the global one (``_forward``)."""
     logits, value = _forward(params, obs, mesh, rows)
     logits = mlp.masked_logits(logits, mask)
     logp_all = torch.log_softmax(logits, dim=-1)
-    row0 = 0 if rows is None else rows.start
-    action = TF.categorical(key, logits, row0).to(I32)
+    action = draw(logits).to(I32)
     logp = _onehot_select(logp_all, action, -1)
     return action, logp, value
+
+
+def _returns(acc, last_ret, out):
+    """The episode-return accumulators after a step's ``out``."""
+    acc = acc + out.reward
+    last_ret = torch.where(out.terminated, acc, last_ret)
+    return torch.where(out.terminated, 0.0, acc), last_ret
+
+
+def _transitions(T: int, n: int, obs_dim: int, A: int, dev) -> Transition:
+    return Transition(
+        obs=torch.empty((T, obs_dim, n), dtype=F32, device=dev),
+        mask=torch.empty((T, A, n), dtype=torch.bool, device=dev),
+        action=torch.empty((T, n), dtype=I32, device=dev),
+        logp=torch.empty((T, n), dtype=F32, device=dev),
+        value=torch.empty((T, n), dtype=F32, device=dev),
+        reward=torch.empty((T, n), dtype=F32, device=dev),
+        done=torch.empty((T, n), dtype=torch.bool, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# The graphed rollout: on CUDA, one rollout step of a fastb train state
+# (masks, policy, draw, autoreset env step, accumulators, the transitions'
+# writes) is captured once into a CUDA graph and replayed at every step.
+# Eagerly, each step dispatches some 450 small device operations from Python.
+# ---------------------------------------------------------------------------
+
+ROLLOUT_CAPTURES = 0   # rollout steps captured
+ROLLOUT_REPLAYS = 0    # rollout steps replayed
+
+# step function -> {the rest of the key: GraphedRollout}; weak, so that a
+# rollout's graph and buffers go with the iteration that built its step
+_ROLLOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_NS = len(FB.BState._fields)
+
+
+def _carried(ts: TrainState) -> tuple:
+    """What a rollout step carries to the next, as one flat tuple: the env
+    state's leaves (None where absent), the obs, the accumulators."""
+    return (*ts.env_state, ts.obs, ts.ep_return_acc, ts.last_ep_return)
+
+
+class GraphedRollout:
+    """The rollout step of one train-state layout as a CUDA graph over
+    static buffers: the carried state (env state, obs, the return
+    accumulators), the policy's parameters, the rollout's keys, the step
+    index and the transitions.  ``run`` loads a train state into them,
+    captures the step at the first call (its warm-up is the rollout's first
+    step), replays it for the others, and hands everything out as fresh
+    tensors: the caller's states stay values."""
+
+    def __init__(self, spec: VariantSpec, ts: TrainState, T: int,
+                 masks_of, use_action_masking: bool, agents: tuple):
+        n, dev = ts.obs.shape[0], ts.obs.device
+        self.variant, self.n = spec.name, n
+        self.masks_of, self.masking = masks_of, use_action_masking
+        self.params = copy.deepcopy(ts.params).requires_grad_(False)
+        self.carry = [None if x is None else x.clone()
+                      for x in _carried(ts)]
+        self.keys = torch.zeros((T, 2), dtype=torch.int64, device=dev)
+        self.t = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.ones = torch.ones((n, spec.n_actions), dtype=torch.bool,
+                               device=dev)
+        self.trs = _transitions(T, n, ts.obs.shape[1], spec.n_actions, dev)
+        # the graph reads the agents' parameters: hold their storages
+        self._held = [p.detach() for a in agents for p in a.parameters()]
+        self.graph, self.launches = None, None
+
+    def _capture(self, run):
+        graph, _, launches = FB.capture_graph(self.t.device, run)
+        return graph, launches
+
+    def _step(self, batched) -> None:
+        """One rollout step on the static buffers, as ``collect_rollout``'s
+        eager loop takes it, with the key of step ``t`` read from device
+        memory; the transitions go to row ``t``, and ``t`` moves on."""
+        st, (obs, acc, last_ret) = (FB.BState(*self.carry[:_NS]),
+                                    self.carry[_NS:])
+        mask = self.masks_of(st) if self.masking else self.ones
+        words = self.keys.index_select(0, self.t)[0]
+        action, logp, value = _sample(
+            self.params, obs, mask, lambda lg: TF.categorical_at(words, lg))
+        st, out = batched(st, action)
+        acc, last_ret = _returns(acc, last_ret, out)
+        for buf, x in zip(self.trs, (obs.T, mask.T, action, logp, value,
+                                     out.reward, out.terminated)):
+            buf.index_copy_(0, self.t, x[None])
+        FB._store(self.carry, (*st, out.obs, acc, last_ret))
+        self.t.add_(1)
+
+    def run(self, batched, ts: TrainState):
+        """The rollout of ``ts``: (the train state after it, the
+        transitions).  ``batched`` is the autoreset step, which only a
+        capture calls."""
+        global ROLLOUT_CAPTURES, ROLLOUT_REPLAYS
+        T, dev = self.keys.shape[0], self.t.device
+        key, words = TF.split_chain(ts.key, T)
+        FB.copy_leaves(list(self.params.parameters()),
+                       list(ts.params.parameters()))
+        FB.copy_leaves(self.carry, _carried(ts))
+        host = torch.tensor(words, dtype=torch.int64)
+        if dev.type == "cuda":
+            host = host.pin_memory()
+        self.keys.copy_(host, non_blocking=True)
+        self.t.zero_()
+        for _ in range(T):
+            with profiling.span("rollout.graph", variant=self.variant,
+                                batch=self.n):
+                if self.graph is None:
+                    self.graph, self.launches = self._capture(
+                        lambda: self._step(batched))
+                    ROLLOUT_CAPTURES += 1
+                else:
+                    self.graph.replay()
+                    FB.count_launches(self.launches)
+                    ROLLOUT_REPLAYS += 1
+        leaves = [None if x is None else x.clone() for x in self.carry]
+        obs, acc, last_ret = leaves[_NS:]
+        ts = ts._replace(env_state=FB.BState(*leaves[:_NS]), obs=obs,
+                         key=key, ep_return_acc=acc, last_ep_return=last_ret)
+        return ts, Transition(*(x.clone() for x in self.trs))
+
+
+def _layout(ts: TrainState) -> tuple:
+    """The shapes and dtypes a rollout graph bakes in."""
+    return tuple(None if x is None else (tuple(x.shape), x.dtype)
+                 for x in (*_carried(ts), *ts.params.parameters()))
+
+
+def graphed_rollout(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
+                    ts: TrainState, step_fn, use_action_masking: bool,
+                    mesh=None):
+    """The graphed rollout for ``ts``, or None where the rollout runs
+    eagerly: an engine other than ``fastb`` (the parity and ``fast``
+    engines read the device from the host), a state off CUDA, or a mesh
+    (its step holds a collective).  A graph is captured at the first
+    request and kept while ``step_fn`` lives, keyed on ``step_fn``, the
+    spec's autoreset-step method (a patched one is captured anew), the
+    configuration, the spec, masking, ``n_steps``, the state's and the
+    parameters' layout, the device, the step's frozen agents (by their
+    parameters' storages) and whether products may run in TF32.  The
+    parameters themselves are loaded at every rollout."""
+    if spec.engine != "fastb" or ts.obs.device.type != "cuda" \
+            or mesh is not None:
+        return None
+    agents = getattr(step_fn, "_agents", ())
+    key = (type(spec).batched_autoreset_step, cfg, spec, use_action_masking,
+           pcfg.n_steps, _layout(ts), ts.obs.device,
+           tuple(map(FB._graph_key, agents)),
+           torch.backends.cuda.matmul.allow_tf32)
+    graphs = _ROLLOUTS.setdefault(step_fn, {})
+    g = graphs.get(key)
+    if g is None:
+        g = graphs[key] = GraphedRollout(
+            spec, ts, pcfg.n_steps, spec.batched_masks(cfg),
+            use_action_masking, agents)
+    return g
 
 
 @torch.no_grad()
@@ -357,7 +522,9 @@ def collect_rollout(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
                     mesh=None):
     """``n_steps`` of policy + autoreset env step; returns (ts, the
     transitions, the last values).  With masking off the policy samples
-    the plain categorical and the env sanitizes invalid actions.
+    the plain categorical and the env sanitizes invalid actions.  Where
+    ``graphed_rollout`` gives a graph (``fastb`` on CUDA, no mesh), each
+    step is a replay of it, with the same bits.
 
     ``mesh`` (a ``parallel.mesh`` DeviceMesh): ``ts`` holds this rank's dp
     shard of the envs (``parallel.fastb_shard.shard_train_state``); the
@@ -369,38 +536,32 @@ def collect_rollout(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
         M.check_mesh(mesh)
         rows = M.local_rows(mesh, ts.obs.shape[0] * M.dp_size(mesh))
     batched = spec.batched_autoreset_step(cfg, step_fn, use_action_masking)
+    graph = graphed_rollout(cfg, pcfg, spec, ts, step_fn, use_action_masking,
+                            mesh)
+    if graph is not None:
+        ts, trs = graph.run(batched, ts)
+        return ts, trs, _forward(ts.params, ts.obs)[1]
     masks_of = spec.batched_masks(cfg)
     n, dev, T = ts.obs.shape[0], ts.obs.device, pcfg.n_steps
     A = spec.n_actions
-    trs = Transition(
-        obs=torch.empty((T, ts.obs.shape[1], n), dtype=F32, device=dev),
-        mask=torch.empty((T, A, n), dtype=torch.bool, device=dev),
-        action=torch.empty((T, n), dtype=I32, device=dev),
-        logp=torch.empty((T, n), dtype=F32, device=dev),
-        value=torch.empty((T, n), dtype=F32, device=dev),
-        reward=torch.empty((T, n), dtype=F32, device=dev),
-        done=torch.empty((T, n), dtype=torch.bool, device=dev))
+    trs = _transitions(T, n, ts.obs.shape[1], A, dev)
     ones = torch.ones((n, A), dtype=torch.bool, device=dev)
     env_state, obs, key = ts.env_state, ts.obs, ts.key
     acc, last_ret = ts.ep_return_acc, ts.last_ep_return
+    row0 = 0 if rows is None else rows.start
     for t in range(T):
         with profiling.span("rollout.policy"):
             mask = masks_of(env_state) if use_action_masking else ones
             key, sk = TF.split_key(key)
-            action, logp, value = _sample(ts.params, obs, mask, sk, mesh,
-                                          rows)
+            action, logp, value = _sample(
+                ts.params, obs, mask,
+                lambda lg: TF.categorical(sk, lg, row0), mesh, rows)
         with profiling.span("rollout.env"):
             env_state, out = batched(env_state, action)
-        acc = acc + out.reward
-        last_ret = torch.where(out.terminated, acc, last_ret)
-        acc = torch.where(out.terminated, 0.0, acc)
-        trs.obs[t] = obs.T
-        trs.mask[t] = mask.T
-        trs.action[t] = action
-        trs.logp[t] = logp
-        trs.value[t] = value
-        trs.reward[t] = out.reward
-        trs.done[t] = out.terminated
+        acc, last_ret = _returns(acc, last_ret, out)
+        for buf, x in zip(trs, (obs.T, mask.T, action, logp, value,
+                                out.reward, out.terminated)):
+            buf[t] = x
         obs = out.obs
     last_value = _forward(ts.params, obs, mesh, rows)[1]
     ts = ts._replace(env_state=env_state, obs=obs, key=key,

@@ -6,7 +6,8 @@ benchmark's readers of them, at the benchmark's tiny sizes
 (``portbench/tests/conftest.py::TINY``).
 
 On the card (marker ``cuda``): spans never reach the device's timeline,
-and each kernel-1 launch lies inside its ``step_mono.launch`` span.  This
+and each kernel-1 launch lies inside its span (``rollout.graph`` around a
+replayed rollout step, ``step_mono.launch`` around an eager one).  This
 file imports no JAX; on the card:
 
     python -m pytest tests/test_torch_tracing.py -m cuda --noconftest \
@@ -286,6 +287,25 @@ def test_traced_cpu_step_records_every_span(case):
         assert len(policies) == 10 and len(set(policies)) == 5
 
 
+def test_rollout_graph_share_reader():
+    """``learner.rollout_graph_share.train`` reads 0 on the CPU's eager
+    rollout, 100 where every step is a ``rollout.graph`` span, and None
+    where the slice recorded no rollout step."""
+    read = _reader("learner.rollout_graph_share.train")
+    run = _train()
+    with torch.profiler.profile():
+        run()
+    assert read(None) == 0.0
+    with torch.profiler.profile():
+        for _ in range(3):
+            with P.span("rollout.graph", variant="mono", batch=4):
+                pass
+    assert read(None) == 100.0
+    with torch.profiler.profile():
+        torch.zeros(2).sum()
+    assert read(None) is None
+
+
 def test_replayed_step_records_one_graph_span():
     """A graphed step (``fastb.GraphedStep``) records one ``fastb.eager``
     span per replay, with its body and ``graph=True``, counts the replay
@@ -365,24 +385,35 @@ def test_cuda_spans_leave_the_device_timeline(cuda, case, monkeypatch):
 
 
 @pytest.mark.cuda
-def test_cuda_launches_lie_inside_their_spans(cuda, tmp_path):
+def test_cuda_launches_lie_inside_their_spans(cuda, tmp_path, monkeypatch):
     """Every host launch call of kernel 1 in a train iteration's Chrome
-    trace lies inside a ``step_mono.launch`` span."""
-    run = _train(cuda)
-    run()
-    with P.trace(str(tmp_path)) as tr:
+    trace lies inside its span: a ``rollout.graph`` span around the graph
+    launch of each replayed rollout step, and, with the rollout stepped
+    eagerly, a ``step_mono.launch`` span around each kernel launch."""
+    from marl_sortingenv_tpu_torch.learn import ppo
+
+    def launches_in(span, graphed):
+        run = _train(cuda)
         run()
-    doc = json.loads(Path(tr.path).read_text())
-    ev = doc["traceEvents"]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in ev
-                   if e.get("cat") == "program_span"
-                   and e["name"] == "step_mono.launch")
-    kernels = {e["args"]["correlation"] for e in ev
-               if e.get("cat") == "kernel" and "step_mono" in e["name"]}
-    launches = [e for e in ev if e.get("cat") in ("cuda_runtime",
-                                                  "cuda_driver")
-                and e["args"].get("correlation") in kernels]
-    assert len(spans) == len(launches) == _tiny("train_mono")["n_steps"]
-    for e in launches:
-        assert any(s <= e["ts"] and e["ts"] + e["dur"] <= t
-                   for s, t in spans), e
+        with monkeypatch.context() as m:
+            if not graphed:
+                m.setattr(ppo, "graphed_rollout", lambda *a, **kw: None)
+            with P.trace(str(tmp_path / span)) as tr:
+                run()
+        doc = json.loads(Path(tr.path).read_text())
+        ev = doc["traceEvents"]
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in ev
+                       if e.get("cat") == "program_span"
+                       and e["name"] == span)
+        kernels = {e["args"]["correlation"] for e in ev
+                   if e.get("cat") == "kernel" and "step_mono" in e["name"]}
+        launches = [e for e in ev if e.get("cat") in ("cuda_runtime",
+                                                      "cuda_driver")
+                    and e["args"].get("correlation") in kernels]
+        assert len(spans) == len(launches) == _tiny("train_mono")["n_steps"]
+        for e in launches:
+            assert any(s <= e["ts"] and e["ts"] + e["dur"] <= t
+                       for s, t in spans), e
+        return {e["name"] for e in launches}
+    assert launches_in("rollout.graph", True) == {"cudaGraphLaunch"}
+    assert "cudaGraphLaunch" not in launches_in("step_mono.launch", False)
