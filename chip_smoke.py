@@ -17,7 +17,8 @@ seeds x 200 steps, whose Random and Rule-Based rows must equal the
 reference's); kernels 1 and 2 are held against their plain versions at the
 flow's widths (16 and 10 envs) as well as at 4096.  The sort kernels are timed alone beside their
 bounds, and every design of the three kernels (a group of lanes per env,
-``sort_cuda.DESIGNS`` and ``mvhg_cuda.REDISTRIBUTE_DESIGNS``) is held
+each kernel's own list: ``step_cuda.STEP_DESIGNS``,
+``sort_cuda.SORT_DESIGNS`` and ``mvhg_cuda.REDISTRIBUTE_DESIGNS``) is held
 bitwise against its plain version and timed at 4096 and 65536 envs
 (``--sweep`` runs that phase alone, also at 8192 to 32768 envs) at
 supports 16, 32, 40 and 88, and kernel 3 also at 128.  Then the paths that run the eager step with its
@@ -375,8 +376,8 @@ def design_sweep(cfg, dev, gen, widths=SWEEP_WIDTHS) -> dict:
             states_equal(out[0], st_p, (out[1], o_p),
                          f"design sweep: step_mono {d} at {n} envs")
 
-        designs12 = sort_cuda.DESIGN_SET.designs_for(support)
-        _sweep_designs(rows, "step_mono", designs12, n,
+        _sweep_designs(rows, "step_mono",
+                       step_cuda.DESIGN_SET.designs_for(support), n,
                        support, b1, lambda d: step_cuda.step_mono_kernel(
                            cfg, st, a, variant="external", masked=True,
                            autoreset=True, design=d), check1, ptxas)
@@ -384,7 +385,8 @@ def design_sweep(cfg, dev, gen, widths=SWEEP_WIDTHS) -> dict:
         p2 = no_launch(sort_cuda.sort_material_plain, counts, acc, keys,
                        support)
         _sweep_designs(
-            rows, "sort_material", designs12, n, support,
+            rows, "sort_material", sort_cuda.DESIGN_SET.designs_for(support),
+            n, support,
             sort_bound(support, n), lambda d: sort_cuda.sort_material_kernel(
                 counts, acc, keys, support, design=d),
             lambda d, out, n=n: _outputs_equal(
@@ -2240,8 +2242,8 @@ def main() -> int:
     from marl_sortingenv_tpu_torch.core import fastb as TB
     from marl_sortingenv_tpu_torch.learn import ppo
     from marl_sortingenv_tpu_torch.models import mlp
-    from marl_sortingenv_tpu_torch.ops import (_build, mvhg_cuda, sort_cuda,
-                                               step_cuda)
+    from marl_sortingenv_tpu_torch.ops import (_build, graphs, mvhg_cuda,
+                                               sort_cuda, step_cuda)
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -2715,7 +2717,7 @@ def main() -> int:
                                      device=dev)
         for engine in ("fastb", "fast"):
             before = launch_counts()
-            graphs = TB.GRAPH_CAPTURES, TB.GRAPH_REPLAYS
+            graphed = graphs.CAPTURES, graphs.REPLAYS
             res = harness.run_engine_benchmark(
                 cfg_d, engine, 10, 200, *agents, device=dev)
             used = {k: v - before[k] for k, v in launch_counts().items()}
@@ -2728,8 +2730,8 @@ def main() -> int:
             if any(used[k] != v for k, v in want.items()):
                 raise AssertionError(f"engine benchmark ({engine}) launched "
                                      f"{used}, expected {want}")
-            replayed = (TB.GRAPH_CAPTURES - graphs[0],
-                        TB.GRAPH_REPLAYS - graphs[1])
+            replayed = (graphs.CAPTURES - graphed[0],
+                        graphs.REPLAYS - graphed[1])
             if replayed != ((0, 600) if engine == "fastb" else (0, 0)):
                 raise AssertionError(f"engine benchmark ({engine}): "
                                      f"(captures, replays) {replayed}")
@@ -2862,7 +2864,7 @@ def main() -> int:
         # a replayed step counts its kernel-2 launch from the capture:
         # the device has to run kernel 2 once in each replay
         seen = (profiled_launches(lambda: run(20), "sort_material_kernel")
-                if key in harness.GRAPHED else None)
+                if kernel == "sort_material" else None)
         if seen not in (None, 20):
             raise AssertionError(f"engine benchmark {key}: the profiler saw "
                                  f"kernel 2 {seen} times in 20 replays")

@@ -22,11 +22,10 @@ bodies also run on CUDA as the kernels' plain versions
 either.
 
 A step is replayed rather than dispatched where the evaluation runs it
-(``eval/harness.policy_steps``, engine ``fastb``): on CUDA the Random,
-PPO Sort-Only and PPO Modular steps (``step_mono_random`` and
-``step_mono_model``, the eager bodies with kernel 2) are captured once per
-step function, configuration, batch, device and agents into a CUDA graph
-(``graphed_step``), which each step then replays with the same kernels and
+(``eval/harness.policy_steps``, engine ``fastb``): on CUDA the public steps
+that are eager bodies (``step_mono_random`` and ``step_mono_model``, with
+kernel 2) are captured once into a CUDA graph (``graphed_step``, through
+``ops/graphs.py``), which each step then replays with the same kernels and
 the same bits.  The learner's rollout (``learn/ppo.py``, ``GraphedRollout``)
 likewise replays its whole step, policy included, on CUDA.  Every other
 step, and every step on the CPU, is dispatched op by op as above.
@@ -49,6 +48,7 @@ import torch
 
 from .. import const, resolve_device
 from ..config.config import SimConfig
+from ..ops import graphs
 from ..utils import profiling
 from . import threefry as TF
 
@@ -942,13 +942,16 @@ def _neg_inf_where_not(mask, logits):
 
 
 @profiling.spanned("fastb.eager", body="model")
-def _model_body(cfg: SimConfig, st: BState, sort_policy=None,
-                press_policy=None, use_action_masking: bool = True,
-                plain: bool = False):
-    """The modular agents on the monolith: both act on the post-update,
-    pre-sort state.  A missing sort agent draws a uniform 2-way mode, a
-    missing press agent a masked (or uniform 11-way) press, each from its
-    own split of the env's key."""
+def step_mono_model(cfg: SimConfig, st: BState, sort_policy=None,
+                    press_policy=None, use_action_masking: bool = True,
+                    plain: bool = False):
+    """The monolith driven by the modular agents (``ActorCritic`` modules,
+    or None for the random fallbacks): the engine benchmark's Sort-Only and
+    Modular policies.  Both act on the post-update, pre-sort state.  A
+    missing sort agent draws a uniform 2-way mode, a missing press agent a
+    masked (or uniform 11-way) press, each from its own split of the env's
+    key.  An eager body, with its sorting core on the sorting-core kernel
+    for a state on CUDA."""
     st = _update_environment(cfg, st)
     n = st.current_step.shape[0]
     dev = st.current_step.device
@@ -985,9 +988,12 @@ def _model_body(cfg: SimConfig, st: BState, sort_policy=None,
 
 
 @profiling.spanned("fastb.eager", body="random")
-def _random_body(cfg: SimConfig, st: BState, use_action_masking: bool = True,
-                 plain: bool = False):
-    """A uniform (masked) monolith action from a split of the env's key."""
+def step_mono_random(cfg: SimConfig, st: BState,
+                     use_action_masking: bool = True, plain: bool = False):
+    """The monolith driven by uniform (masked) random actions, each drawn
+    from a split of the env's key; unmasked invalid presses become no-ops.
+    An eager body, with its sorting core on the sorting-core kernel for a
+    state on CUDA."""
     st = _update_environment(cfg, st)
     n = st.current_step.shape[0]
     dev = st.current_step.device
@@ -1029,10 +1035,10 @@ def _body(variant: str, use_action_masking: bool = True, sort_policy=None,
         return lambda c, s, a: _press_body(c, s, a, m, sort_policy,
                                            plain=plain)
     if variant == "model":
-        return lambda c, s, a=None: _model_body(c, s, sort_policy,
-                                                press_policy, m, plain=plain)
+        return lambda c, s, a=None: step_mono_model(
+            c, s, sort_policy, press_policy, m, plain=plain)
     if variant == "random":
-        return lambda c, s, a=None: _random_body(c, s, m, plain=plain)
+        return lambda c, s, a=None: step_mono_random(c, s, m, plain=plain)
     raise ValueError(f"unknown variant {variant!r}")
 
 
@@ -1094,24 +1100,6 @@ def step_mono_rule(cfg: SimConfig, st: BState, action=None):
     return _dispatch(cfg, st, None, "rule")
 
 
-def step_mono_model(cfg: SimConfig, st: BState, sort_policy=None,
-                    press_policy=None, use_action_masking: bool = True):
-    """The monolith driven by the modular agents (``ActorCritic`` modules,
-    or None for the random fallbacks of ``_model_body``): the engine
-    benchmark's Sort-Only and Modular policies.  The eager step, with its
-    sorting core on the sorting-core kernel for a state on CUDA."""
-    return _model_body(cfg, st, sort_policy, press_policy,
-                       use_action_masking)
-
-
-def step_mono_random(cfg: SimConfig, st: BState,
-                     use_action_masking: bool = True):
-    """The monolith driven by uniform (masked) random actions; unmasked
-    invalid presses become no-ops.  The eager step, with its sorting core
-    on the sorting-core kernel for a state on CUDA."""
-    return _random_body(cfg, st, use_action_masking)
-
-
 def autoreset(cfg: SimConfig, st: BState) -> BState:
     return _reset_from_keys(cfg, st.key)
 
@@ -1142,123 +1130,37 @@ def mono_autoreset_step(cfg: SimConfig, variant: str,
 
 
 # ---------------------------------------------------------------------------
-# Graphed steps: an eager step of a CUDA state, captured once into a CUDA
-# graph and replayed.  The eager bodies launch some 1,700 small device
-# operations a step, each dispatched from Python; a replay launches the same
-# kernels, in the same order, on the same data, with one call.
+# Graphed steps (``ops/graphs.py``): the public steps that are eager bodies,
+# by name, with the body their spans name, read from the definitions here
+# (a step patched on the module keeps its body).
 # ---------------------------------------------------------------------------
 
-GRAPH_CAPTURES = 0     # graphs captured
-GRAPH_REPLAYS = 0      # steps replayed
-
-_GRAPHS: "dict[tuple, GraphedStep]" = {}
-
-
-def _kernel_counters():
-    from ..ops import mvhg_cuda, sort_cuda, step_cuda
-    return step_cuda, sort_cuda, mvhg_cuda
-
-
-def copy_leaves(dst, src) -> None:
-    """``d.copy_(s)`` for each pair whose ``d`` is not None, as one
-    multi-tensor copy per pair of dtypes: a CUDA graph records a few
-    copies, not one per leaf."""
-    groups: dict = {}
-    for d, s in zip(dst, src):
-        if d is None:
-            continue
-        ds, ss = groups.setdefault((d.dtype, s.dtype), ([], []))
-        ds.append(d)
-        ss.append(s)
-    for ds, ss in groups.values():
-        torch._foreach_copy_(ds, ss)
-
-
-def _store(static, new, keep=()) -> tuple:
-    """Write each leaf of ``new`` into the leaf of ``static`` at its place
-    (None leaves, and leaves that are the static one, are skipped), and
-    return ``keep``.  A new leaf, or a kept tensor, that shares memory with
-    ``static`` is copied out first, so that no write clobbers what a later
-    one reads (a step hands leaves on: the belt's counts become the
-    sorter's)."""
-    held = {x.untyped_storage().data_ptr() for x in static if x is not None}
-
-    def own(x):
-        return x.clone() if x.untyped_storage().data_ptr() in held else x
-    keep = tuple(map(own, keep))
-    writes = [(s, own(x)) for s, x in zip(static, new)
-              if s is not None and x is not s]
-    if writes:
-        copy_leaves(*zip(*writes))
-    return keep
-
-
-def capture_graph(device, run):
-    """``run()`` warmed up once on a side stream (lazy set-up stays outside
-    the capture), then captured into a CUDA graph: (the graph, what the
-    captured ``run()`` returned, the kernel launches the capture recorded).
-    The warm-up runs for real and its launches count; the capture's are
-    taken off the launch counters, which ``count_launches`` adds them to at
-    each replay."""
-    with torch.cuda.device(device):
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            run()
-        torch.cuda.current_stream(device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        mods = _kernel_counters()
-        before = [m.LAUNCHES for m in mods]
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
-            out = run()
-        launches = [m.LAUNCHES - n for m, n in zip(mods, before)]
-        for m, n in zip(mods, before):
-            m.LAUNCHES = n
-    return graph, out, launches
-
-
-def count_launches(launches) -> None:
-    """Add one replay's kernel launches (``capture_graph``'s record) to the
-    launch counters."""
-    for m, k in zip(_kernel_counters(), launches):
-        m.LAUNCHES += k
+_EAGER_STEPS = {f.__name__: f.span[1]["body"]
+                for f in (step_mono_model, step_mono_random)}
 
 
 class GraphedStep:
     """``fn(cfg, state, *args) -> (state, BStepOut)`` on a CUDA ``BState``,
-    captured once into a CUDA graph that also writes the new state back
-    into its input state.  ``load(st)`` sets that state (the capture leaves
-    it a step past ``st``), and each ``step()`` is one replay.  The graph
-    replays the kernels the capture recorded on the memory it recorded:
-    ``args`` (agents included) are held, and a replay reads their
-    parameters as they are then."""
+    captured once (``graphs.Graph``) with the new state written back into
+    its input state, which ``loaded(st)`` sets; each ``step()`` is one
+    replay, which reads the agents' parameters as they are then."""
 
     def __init__(self, cfg: SimConfig, fn, args: tuple, st: BState,
                  body: str):
-        global GRAPH_CAPTURES
         self.body, self.busy = body, False
         self.state = BState(*(None if x is None else x.clone() for x in st))
-        self._args = args      # the graph reads their memory
 
         def run():
             new, out = fn(cfg, self.state, *args)
-            return BStepOut(*_store(self.state, new, out))
-        self.graph, self.out, self.launches = self._capture(run)
-        GRAPH_CAPTURES += 1
-
-    def _capture(self, run):
-        return capture_graph(self.state.key.device, run)
-
-    def load(self, st: BState) -> None:
-        """Copy ``st`` into the graph's input state."""
-        copy_leaves(self.state, st)
+            return BStepOut(*graphs.store(self.state, new, out))
+        self.graph = graphs.Graph(st.key.device, run)
 
     @contextlib.contextmanager
     def loaded(self, st: BState):
-        """The stepper at ``st``, held as in use (``graphed_step`` hands it
-        to no one else) until the block ends."""
-        self.load(st)
+        """The stepper at ``st`` (copied into its input state), held as in
+        use (``graphed_step`` hands it to no one else) until the block
+        ends."""
+        graphs.copy_leaves(self.state, st)
         self.busy = True
         try:
             yield self
@@ -1268,42 +1170,22 @@ class GraphedStep:
     def step(self) -> BStepOut:
         """One step: a replay, then the outputs as fresh tensors (the next
         replay overwrites the graph's own)."""
-        global GRAPH_REPLAYS
         with profiling.span("fastb.eager", body=self.body, graph=True):
             self.graph.replay()
-            out = BStepOut(*(x.clone() for x in self.out))
-        GRAPH_REPLAYS += 1
-        count_launches(self.launches)
-        return out
+            return BStepOut(*(x.clone() for x in self.graph.out))
 
 
-def _graph_key(arg):
-    """An agent keys a graph by its parameters' storages, anything else by
-    itself."""
-    if isinstance(arg, torch.nn.Module):
-        return tuple((p.data_ptr(), tuple(p.shape), p.dtype)
-                     for p in arg.parameters())
-    return arg
-
-
-def graphed_step(cfg: SimConfig, fn, args: tuple, st: BState,
-                 body: str) -> Optional[GraphedStep]:
-    """The graphed stepper of ``fn(cfg, st, *args)`` for states of
-    ``st``'s batch and device, captured at its first request and kept, with
-    its agents, for the life of the process: an evaluation keeps three, and
-    a caller that loads new agents for each evaluation adds two more each
-    time.  It is keyed on the step function itself (a patched one is
-    captured anew), the configuration, the batch, the device, ``args`` (an
-    agent by its parameters' storages) and whether products may run in
-    TF32.  ``body`` names the step in its ``fastb.eager`` spans.
-    Returns None while the stepper of that key is in use: its input state
-    is taken, and the caller steps eagerly."""
-    key = (fn, cfg, tuple(st.key.shape), st.key.device,
-           tuple(map(_graph_key, args)),
-           torch.backends.cuda.matmul.allow_tf32)
-    g = _GRAPHS.get(key)
-    if g is None:
-        g = _GRAPHS[key] = GraphedStep(cfg, fn, args, st, body)
-    elif g.busy:
+def graphed_step(cfg: SimConfig, name: str, args: tuple,
+                 st: BState) -> Optional[GraphedStep]:
+    """The graphed stepper of ``step(cfg, st, *args)``, ``step`` the public
+    step ``name`` of this module as it is now (a patched one keys a graph
+    of its own, ``graphs.cached``), or None: for a step that is no eager
+    body (on CUDA it launches kernel 1), and while the stepper is in use
+    (the caller then steps eagerly)."""
+    body = _EAGER_STEPS.get(name)
+    if body is None:
         return None
-    return g
+    fn = globals()[name]
+    g = graphs.cached(fn, (cfg, *args), st,
+                      lambda: GraphedStep(cfg, fn, args, st, body))
+    return None if g.busy else g

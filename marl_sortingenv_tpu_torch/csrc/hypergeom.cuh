@@ -11,8 +11,7 @@
 // step reads the values of the previous one.  Division is IEEE (no fast
 // math).  CAP is the array size; S <= CAP is the support.  With S a
 // compile-time constant after inlining, the arrays stay in registers.  The
-// loops of a large CAP (the generic runtime-support path) stay rolled,
-// which keeps its build short.
+// loops of a CAP above 32 stay rolled, which keeps a build short.
 #pragma once
 
 #define HG_UNROLL _Pragma("unroll (CAP <= 32 ? CAP : 1)")

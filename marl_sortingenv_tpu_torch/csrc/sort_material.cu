@@ -47,8 +47,8 @@ sort_material_kernel(int n, int support, const int* __restrict__ counts,
     const int i = env0 + e;
     const LaneGroup<LANES> g;
     if (i < n) {
-        // the one-lane designs below the generic cap run at S = CAP exactly
-        const int S = (CAP == 104 || LANES > 1) ? support : CAP;
+        // a one-lane design runs at S = CAP exactly
+        const int S = LANES > 1 ? support : CAP;
         int lv[4], tarr[4], farr[4];
         float a[4];
 #pragma unroll
@@ -98,10 +98,10 @@ sort_material_kernel(int n, int support, const int* __restrict__ counts,
         new_keys[2 * (size_t)env0 + idx] = tile[(SM_KEY + (idx & 1)) * EPB + (idx >> 1)];
 }
 
-// The designs, (LANES, CAP) pairs, as in step_mono.cu (mirrored by
-// ops/sort_cuda.py through sort_material_designs()).
-#define SORT_DESIGNS(X) X(1, 16) X(4, 16) X(8, 16) X(16, 16) X(8, 32) X(16, 32) X(32, 32) \
-    X(8, 64) X(16, 64) X(32, 64) X(16, 128) X(32, 128) X(1, 104)
+// The designs, (LANES, CAP) pairs, as in step_mono.cu: those
+// ops/sort_cuda.py's table picks (mirrored by ops/sort_cuda.py::SORT_DESIGNS
+// through sort_material_designs()).
+#define SORT_DESIGNS(X) X(1, 16) X(16, 16) X(16, 32) X(32, 32) X(32, 64) X(32, 128)
 
 extern "C" {
 
@@ -117,13 +117,13 @@ int sort_material_designs(int* out, int max) {
 
 // Launch the kernel over n envs with design (lanes, cap) on `stream`.
 // Returns the cudaError_t of the launch (cudaErrorInvalidValue for n < 1, a
-// support outside [1, cap], a one-lane design below the generic cap at
-// another support than its cap, or a design that is not built).
+// support outside [1, cap], a one-lane design at another support than its
+// cap, or a design that is not built).
 int sort_material_launch(int n, int support, const void* counts, const void* acc,
                          const void* keys, void* leftover, void* true_out,
                          void* false_out, void* new_keys, int lanes, int cap,
                          void* stream) {
-    if (n < 1 || support < 1 || support > cap || (lanes == 1 && cap < 104 && support != cap))
+    if (n < 1 || support < 1 || support > cap || (lanes == 1 && support != cap))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
     const int* c = static_cast<const int*>(counts);

@@ -335,8 +335,8 @@ step_mono_kernel(const StepConsts c, const StepPtrs p) {
         }
 
         // ---- 4. sort (fastb._sort_material + redistribute_u; sort_core.cuh)
-        // the one-lane designs below the generic cap run at S = CAP exactly
-        const int S = (CAP == 104 || LANES > 1) ? c.support : CAP;
+        // a one-lane design runs at S = CAP exactly
+        const int S = LANES > 1 ? c.support : CAP;
         const int total_input = sort_c[0] + sort_c[1] + sort_c[2] + sort_c[3];
         int lv[4], tarr[4], farr[4];
 #pragma unroll
@@ -675,12 +675,13 @@ step_mono_kernel(const StepConsts c, const StepPtrs p) {
     for (int idx = threadIdx.x; idx < nv * obs_rows; idx += THREADS) obs[idx] = obs_tile[idx];
 }
 
-// The designs, (LANES, CAP) pairs: CAP is the support the design covers
-// (104, the engine's cap, is the one-lane generic runtime-support path; the
-// groups at caps 64 and 128 cover supports 33-104).  Mirrored by
-// ops/sort_cuda.py::DESIGNS (checked through step_mono_designs()).
-#define STEP_DESIGNS(X) X(1, 16) X(4, 16) X(8, 16) X(16, 16) X(8, 32) X(16, 32) X(32, 32) \
-    X(8, 64) X(16, 64) X(32, 64) X(16, 128) X(32, 128) X(1, 104)
+// The designs, (LANES, CAP) pairs: CAP is the largest support the design
+// covers (the groups at caps 64 and 128 cover supports 33-104), and a
+// one-lane design covers its cap alone.  Those ops/step_cuda.py's table
+// picks, mirrored by ops/step_cuda.py::STEP_DESIGNS (checked through
+// step_mono_designs()).
+#define STEP_DESIGNS(X) X(1, 16) X(8, 16) X(16, 16) X(8, 32) X(16, 32) X(8, 64) \
+    X(16, 64) X(16, 128)
 
 extern "C" {
 
@@ -700,8 +701,8 @@ int step_mono_designs(int* out, int max) {
 
 // Launch one step with design (lanes, cap) on `stream`.  Returns the
 // cudaError_t of the launch; cudaErrorInvalidValue for a design that is not
-// built or does not cover the config's support (a one-lane design below the
-// generic cap covers its cap alone).
+// built or does not cover the config's support (a one-lane design covers its
+// cap alone).
 int step_mono_launch(const StepConsts* consts, void* const* in_ptrs,
                      void* const* out_ptrs, int lanes, int cap, void* stream) {
     StepPtrs p;
@@ -709,7 +710,7 @@ int step_mono_launch(const StepConsts* consts, void* const* in_ptrs,
     for (int k = 0; k < N_OUT; ++k) p.out[k] = out_ptrs[k];
     const int n = consts->n;
     const int sup = consts->support;
-    if (n < 1 || sup < 1 || sup > cap || (lanes == 1 && cap < 104 && sup != cap))
+    if (n < 1 || sup < 1 || sup > cap || (lanes == 1 && sup != cap))
         return (int)cudaErrorInvalidValue;
     cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define X(L, C)                                                                  \

@@ -34,6 +34,7 @@ from ..core import legacy_random as LR
 from ..core import state as S
 from ..core import step as ST
 from ..models import mlp
+from ..ops import graphs
 from ..utils import profiling
 
 POLICY_KEYS = ["Random", "Rule-Based", "PPO Sort-Only", "PPO Modular",
@@ -280,12 +281,6 @@ def compare_engine_drift(cfg: SimConfig, num_seeds: int = 10,
     return table
 
 
-# the eager steps of the evaluation that replay from a CUDA graph on fastb
-# (``FB.graphed_step``), by policy: the name of their body's span
-GRAPHED = {"Random": "random", "PPO Sort-Only": "model",
-           "PPO Modular": "model"}
-
-
 def policy_steps(cfg: SimConfig, policy: str, engine: str = "fastb",
                  num_episodes: int = 10, steps: int = 200,
                  sort_params=None, press_params=None, mono_params=None,
@@ -294,9 +289,9 @@ def policy_steps(cfg: SimConfig, policy: str, engine: str = "fastb",
     """The step outputs, one per step, of ``num_episodes`` lockstep
     episodes of one policy of ``POLICY_KEYS`` on ``engine``: the episodes
     reset from ``seed0`` and step ``steps`` times without autoreset.  On
-    ``fastb`` with CUDA the steps of ``GRAPHED`` replay a CUDA graph,
-    captured at the first call for the policy's step, configuration,
-    batch and agents; each output is a tensor of its own."""
+    ``fastb`` with CUDA (``graphs.eligible``) the steps that are eager
+    bodies replay a CUDA graph (``fastb.graphed_step``: Random, PPO
+    Sort-Only, PPO Modular); each output is a tensor of its own."""
     mod = {"fast": FE, "fastb": FB}[engine]
     dev = resolve_device(device)
     m = use_action_masking
@@ -317,11 +312,8 @@ def policy_steps(cfg: SimConfig, policy: str, engine: str = "fastb",
     with torch.no_grad():
         if policy != "PPO Monolith":
             name, args = named[policy]
-            step = getattr(mod, name)
-            graphed = None
-            if mod is FB and dev.type == "cuda" and policy in GRAPHED:
-                graphed = FB.graphed_step(cfg, step, args, st,
-                                          GRAPHED[policy])
+            graphed = (FB.graphed_step(cfg, name, args, st)
+                       if graphs.eligible(engine, dev) else None)
             if graphed is not None:
                 with graphed.loaded(st):
                     for _ in range(steps):
@@ -329,6 +321,7 @@ def policy_steps(cfg: SimConfig, policy: str, engine: str = "fastb",
                             out = graphed.step()
                         yield out
                 return
+            step = getattr(mod, name)
             for _ in range(steps):
                 with profiling.span("eval.step", policy=policy):
                     st, out = step(cfg, st, *args)

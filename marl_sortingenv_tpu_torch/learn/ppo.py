@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +42,7 @@ from ..core import fastb as FB
 from ..core import parity as PE
 from ..core import threefry as TF
 from ..models import mlp
+from ..ops import graphs
 from ..parallel import distributed as DI
 from ..parallel import mesh as M
 from ..utils import profiling
@@ -380,16 +380,11 @@ def _transitions(T: int, n: int, obs_dim: int, A: int, dev) -> Transition:
 # ---------------------------------------------------------------------------
 # The graphed rollout: on CUDA, one rollout step of a fastb train state
 # (masks, policy, draw, autoreset env step, accumulators, the transitions'
-# writes) is captured once into a CUDA graph and replayed at every step.
-# Eagerly, each step dispatches some 450 small device operations from Python.
+# writes) is captured once into a CUDA graph (``ops/graphs.py``) and
+# replayed at every step.  Eagerly, each step dispatches some 450 small
+# device operations from Python.
 # ---------------------------------------------------------------------------
 
-ROLLOUT_CAPTURES = 0   # rollout steps captured
-ROLLOUT_REPLAYS = 0    # rollout steps replayed
-
-# step function -> {the rest of the key: GraphedRollout}; weak, so that a
-# rollout's graph and buffers go with the iteration that built its step
-_ROLLOUTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _NS = len(FB.BState._fields)
 
 
@@ -409,7 +404,7 @@ class GraphedRollout:
     tensors: the caller's states stay values."""
 
     def __init__(self, spec: VariantSpec, ts: TrainState, T: int,
-                 masks_of, use_action_masking: bool, agents: tuple):
+                 masks_of, use_action_masking: bool):
         n, dev = ts.obs.shape[0], ts.obs.device
         self.variant, self.n = spec.name, n
         self.masks_of, self.masking = masks_of, use_action_masking
@@ -421,13 +416,7 @@ class GraphedRollout:
         self.ones = torch.ones((n, spec.n_actions), dtype=torch.bool,
                                device=dev)
         self.trs = _transitions(T, n, ts.obs.shape[1], spec.n_actions, dev)
-        # the graph reads the agents' parameters: hold their storages
-        self._held = [p.detach() for a in agents for p in a.parameters()]
-        self.graph, self.launches = None, None
-
-    def _capture(self, run):
-        graph, _, launches = FB.capture_graph(self.t.device, run)
-        return graph, launches
+        self.graph = None
 
     def _step(self, batched) -> None:
         """One rollout step on the static buffers, as ``collect_rollout``'s
@@ -444,19 +433,18 @@ class GraphedRollout:
         for buf, x in zip(self.trs, (obs.T, mask.T, action, logp, value,
                                      out.reward, out.terminated)):
             buf.index_copy_(0, self.t, x[None])
-        FB._store(self.carry, (*st, out.obs, acc, last_ret))
+        graphs.store(self.carry, (*st, out.obs, acc, last_ret))
         self.t.add_(1)
 
     def run(self, batched, ts: TrainState):
         """The rollout of ``ts``: (the train state after it, the
         transitions).  ``batched`` is the autoreset step, which only a
         capture calls."""
-        global ROLLOUT_CAPTURES, ROLLOUT_REPLAYS
         T, dev = self.keys.shape[0], self.t.device
         key, words = TF.split_chain(ts.key, T)
-        FB.copy_leaves(list(self.params.parameters()),
-                       list(ts.params.parameters()))
-        FB.copy_leaves(self.carry, _carried(ts))
+        graphs.copy_leaves(list(self.params.parameters()),
+                           list(ts.params.parameters()))
+        graphs.copy_leaves(self.carry, _carried(ts))
         host = torch.tensor(words, dtype=torch.int64)
         if dev.type == "cuda":
             host = host.pin_memory()
@@ -466,13 +454,10 @@ class GraphedRollout:
             with profiling.span("rollout.graph", variant=self.variant,
                                 batch=self.n):
                 if self.graph is None:
-                    self.graph, self.launches = self._capture(
-                        lambda: self._step(batched))
-                    ROLLOUT_CAPTURES += 1
+                    self.graph = graphs.Graph(
+                        dev, lambda: self._step(batched))
                 else:
                     self.graph.replay()
-                    FB.count_launches(self.launches)
-                    ROLLOUT_REPLAYS += 1
         leaves = [None if x is None else x.clone() for x in self.carry]
         obs, acc, last_ret = leaves[_NS:]
         ts = ts._replace(env_state=FB.BState(*leaves[:_NS]), obs=obs,
@@ -480,40 +465,22 @@ class GraphedRollout:
         return ts, Transition(*(x.clone() for x in self.trs))
 
 
-def _layout(ts: TrainState) -> tuple:
-    """The shapes and dtypes a rollout graph bakes in."""
-    return tuple(None if x is None else (tuple(x.shape), x.dtype)
-                 for x in (*_carried(ts), *ts.params.parameters()))
-
-
 def graphed_rollout(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
                     ts: TrainState, step_fn, use_action_masking: bool,
                     mesh=None):
-    """The graphed rollout for ``ts``, or None where the rollout runs
-    eagerly: an engine other than ``fastb`` (the parity and ``fast``
-    engines read the device from the host), a state off CUDA, or a mesh
-    (its step holds a collective).  A graph is captured at the first
-    request and kept while ``step_fn`` lives, keyed on ``step_fn``, the
-    spec's autoreset-step method (a patched one is captured anew), the
-    configuration, the spec, masking, ``n_steps``, the state's and the
-    parameters' layout, the device, the step's frozen agents (by their
-    parameters' storages) and whether products may run in TF32.  The
-    parameters themselves are loaded at every rollout."""
-    if spec.engine != "fastb" or ts.obs.device.type != "cuda" \
-            or mesh is not None:
+    """The graphed rollout for ``ts`` (``graphs.cached``: keyed also on the
+    spec's autoreset-step method, so a patched one is captured anew; the
+    parameters are loaded at every rollout), or None where the rollout runs
+    eagerly (``graphs.eligible``)."""
+    if not graphs.eligible(spec.engine, ts.obs.device, mesh):
         return None
-    agents = getattr(step_fn, "_agents", ())
-    key = (type(spec).batched_autoreset_step, cfg, spec, use_action_masking,
-           pcfg.n_steps, _layout(ts), ts.obs.device,
-           tuple(map(FB._graph_key, agents)),
-           torch.backends.cuda.matmul.allow_tf32)
-    graphs = _ROLLOUTS.setdefault(step_fn, {})
-    g = graphs.get(key)
-    if g is None:
-        g = graphs[key] = GraphedRollout(
-            spec, ts, pcfg.n_steps, spec.batched_masks(cfg),
-            use_action_masking, agents)
-    return g
+    return graphs.cached(
+        step_fn, (type(spec).batched_autoreset_step, cfg, spec,
+                  use_action_masking, pcfg.n_steps,
+                  *getattr(step_fn, "_agents", ())),
+        (*_carried(ts), *ts.params.parameters()),
+        lambda: GraphedRollout(spec, ts, pcfg.n_steps,
+                               spec.batched_masks(cfg), use_action_masking))
 
 
 @torch.no_grad()

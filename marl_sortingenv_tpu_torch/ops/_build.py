@@ -5,7 +5,8 @@ compiled by ``nvcc`` for ``sm_90a`` and loaded with ``ctypes``.  The build
 goes to ``build/kernels/`` at the root of the checkout and is keyed on a
 hash of every source and of the flags, so a changed source is rebuilt and
 an unchanged one is loaded as it is.  All sources are compiled in
-parallel, one ``nvcc`` each.
+parallel, one ``nvcc`` each.  ``DesignSet`` holds the checks on the designs
+each kernel's wrapper lists and its library builds.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -106,3 +108,68 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_all()[name]))
         _LIBS[name] = lib
     return lib
+
+
+class DesignSet(NamedTuple):
+    """The designs ``(lanes, cap)`` one kernel's library builds: a group of
+    ``lanes`` lanes of a warp per env, supports up to ``cap``; a one-lane
+    design runs at exactly its cap (a compile-time support keeps its
+    sampler's arrays in registers).  ``max_support`` is the largest support
+    the kernel takes."""
+    designs: tuple
+    max_support: int
+
+    def check_support(self, support: int) -> None:
+        if not 1 <= support <= self.max_support:
+            raise ValueError(f"support {support} is outside the kernels' "
+                             f"range [1, {self.max_support}]")
+
+    def covers(self, design, support: int) -> bool:
+        """Whether ``design`` runs the sampler at ``support``."""
+        lanes, cap = design
+        return support == cap if lanes == 1 else support <= cap
+
+    def designs_for(self, support: int) -> list:
+        """The built designs that cover ``support``."""
+        return [d for d in self.designs if self.covers(d, support)]
+
+    def check_design(self, design, support: int) -> tuple:
+        """``design`` as a ``(lanes, cap)`` tuple; raises unless it is
+        built and covers ``support``."""
+        self.check_support(support)
+        design = tuple(design)
+        if design not in self.designs:
+            raise ValueError(f"design {design} is not built; the designs "
+                             f"are {self.designs}")
+        if not self.covers(design, support):
+            raise ValueError(f"design {design} covers supports up to "
+                             f"{design[1]}, not {support}"
+                             + (" (a one-lane design runs at its cap alone)"
+                                if design[0] == 1 else ""))
+        return design
+
+    def pick(self, table, support: int, n: int) -> tuple:
+        """The first design of ``table`` -- rows (largest support, smallest
+        n or 0, design) -- whose bounds admit ``(support, n)`` and which
+        covers ``support``."""
+        self.check_support(support)
+        for max_support, min_n, design in table:
+            if (support <= max_support and n >= min_n
+                    and self.covers(design, support)):
+                return design
+        raise ValueError(f"no design for support {support} at n = {n}")
+
+    def bind(self, lib, name: str) -> None:
+        """Raise unless the library ``name`` builds exactly these
+        designs."""
+        fn = getattr(lib, f"{name}_designs")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        want = self.designs
+        buf = (ctypes.c_int * (2 * len(want)))()
+        k = fn(buf, len(want))
+        built = tuple((buf[2 * j], buf[2 * j + 1])
+                      for j in range(min(k, len(want))))
+        if k != len(want) or built != want:
+            raise RuntimeError(f"{name}.cu builds designs {built} (of {k}), "
+                               f"the wrapper expects {want}")

@@ -31,7 +31,8 @@ import torch
 
 from ..core import fastb as FB
 from ..utils import profiling
-from .sort_cuda import DesignSet, check_operand
+from ._build import DesignSet
+from .sort_cuda import check_operand
 
 LAUNCHES = 0
 
@@ -45,7 +46,7 @@ SUPPORT = 128
 REDISTRIBUTE_DESIGNS = ((1, 16), (16, 16), (32, 32), (32, 64), (32, 128))
 DESIGN_SET = DesignSet(REDISTRIBUTE_DESIGNS, SUPPORT)
 
-# lanes_for's table (see sort_cuda.DesignSet.pick), from the design sweep
+# lanes_for's table (see _build.DesignSet.pick), from the design sweep
 # of chip_smoke.py on an H100 (PERF.md): the fastest design at 4096 ..
 # 65536 envs, switching halfway between measured widths; supports 33-64
 # take the row measured at support 40, 65-128 the one at 88 and 128.

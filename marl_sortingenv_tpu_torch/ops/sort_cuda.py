@@ -10,15 +10,11 @@ of every eager step whose state lies on CUDA (the frozen-sort press step of
 the training flow); the full-step kernel (``ops/step_cuda.py``) carries its
 own copy of the same device code (``csrc/sort_core.cuh``).
 
-The kernel comes in several designs, ``(lanes, cap)``: a group of
-``lanes`` lanes of a warp sorts one env, covering supports up to ``cap``
-(``DESIGNS``; ``(1, 104)`` is one thread per env at any support).
-``DesignSet`` holds the checks on a kernel's designs; kernel 3
-(``ops/mvhg_cuda.py``) has its own.
-``lanes_for(support, n)`` picks the design from the table that the card's
-timings chose (``PERF.md``); a design that is not built, or does not cover
-the support, raises.  Both this kernel and the step kernel
-(``ops/step_cuda.py``) are built in every design.
+The kernel comes in the designs ``(lanes, cap)`` of ``SORT_DESIGNS``: a
+group of ``lanes`` lanes of a warp sorts one env, covering supports up to
+``cap`` (``(1, 16)``: one thread per env, at support 16 alone); they are
+those of the table that the card's timings chose (``PERF.md``), from which
+``lanes_for(support, n)`` picks one.
 
 ``sort_material`` launches the kernel for tensors on CUDA and runs the
 plain version for tensors on the CPU.  ``LAUNCHES`` counts the kernel's
@@ -28,92 +24,21 @@ launches.  Any ``N >= 1`` works (the TPU kernel needed whole 128-lane rows).
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import torch
 
 from ..core import fastb as FB
 from ..utils import profiling
+from ._build import DesignSet
 
 LAUNCHES = 0
 
 _I32, _F32 = torch.int32, torch.float32
 
 
-class DesignSet(NamedTuple):
-    """The designs ``(lanes, cap)`` one kernel's library builds: a group of
-    ``lanes`` lanes of a warp per env, supports up to ``cap``.  The one-lane
-    design at ``max_support`` (the largest support the kernel takes) is its
-    generic path; a one-lane design below it runs at exactly its cap (a
-    compile-time support keeps its sampler's arrays in registers)."""
-    designs: tuple
-    max_support: int
-
-    def check_support(self, support: int) -> None:
-        if not 1 <= support <= self.max_support:
-            raise ValueError(f"support {support} is outside the kernels' "
-                             f"range [1, {self.max_support}]")
-
-    def covers(self, design, support: int) -> bool:
-        """Whether ``design`` runs the sampler at ``support``."""
-        lanes, cap = design
-        if lanes == 1 and cap < self.max_support:
-            return support == cap
-        return support <= cap
-
-    def designs_for(self, support: int) -> list:
-        """The built designs that cover ``support``."""
-        return [d for d in self.designs if self.covers(d, support)]
-
-    def check_design(self, design, support: int) -> tuple:
-        """``design`` as a ``(lanes, cap)`` tuple; raises unless it is
-        built and covers ``support``."""
-        self.check_support(support)
-        design = tuple(design)
-        if design not in self.designs:
-            raise ValueError(f"design {design} is not built; the designs "
-                             f"are {self.designs}")
-        if not self.covers(design, support):
-            raise ValueError(f"design {design} covers supports up to "
-                             f"{design[1]}, not {support}"
-                             + (" (a one-lane design runs at its cap alone)"
-                                if design[0] == 1 else ""))
-        return design
-
-    def pick(self, table, support: int, n: int) -> tuple:
-        """The first design of ``table`` -- rows (largest support, smallest
-        n or 0, design) -- whose bounds admit ``(support, n)`` and which
-        covers ``support``."""
-        self.check_support(support)
-        for max_support, min_n, design in table:
-            if (support <= max_support and n >= min_n
-                    and self.covers(design, support)):
-                return design
-        raise ValueError(f"no design for support {support} at n = {n}")
-
-    def bind(self, lib, name: str) -> None:
-        """Raise unless the library ``name`` builds exactly these
-        designs."""
-        fn = getattr(lib, f"{name}_designs")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        want = self.designs
-        buf = (ctypes.c_int * (2 * len(want)))()
-        k = fn(buf, len(want))
-        built = tuple((buf[2 * j], buf[2 * j + 1])
-                      for j in range(min(k, len(want))))
-        if k != len(want) or built != want:
-            raise RuntimeError(f"{name}.cu builds designs {built} (of {k}), "
-                               f"the wrapper expects {want}")
-
-
-# (lanes, cap) of every design the sources of kernels 1 and 2 build
-# (STEP_DESIGNS in csrc/step_mono.cu, SORT_DESIGNS in csrc/sort_material.cu);
-# (1, 104) is the generic one-lane path, the groups at caps 64 and 128 cover
-# supports 33 .. 104.
-DESIGNS = ((1, 16), (4, 16), (8, 16), (16, 16), (8, 32), (16, 32), (32, 32),
-           (8, 64), (16, 64), (32, 64), (16, 128), (32, 128), (1, 104))
-DESIGN_SET = DesignSet(DESIGNS, FB._HG_SUPPORT)
+# the designs csrc/sort_material.cu builds (SORT_DESIGNS there)
+SORT_DESIGNS = ((1, 16), (16, 16), (16, 32), (32, 32), (32, 64), (32, 128))
+DESIGN_SET = DesignSet(SORT_DESIGNS, FB._HG_SUPPORT)
 
 # lanes_for's table: (largest support, smallest n or 0, design), the first
 # entry whose bounds admit (support, n) and whose design covers the support
@@ -161,7 +86,8 @@ def sort_material_kernel(counts, acc, keys, support: int, design=None):
     """The sorting core of every env through the kernel (CUDA tensors):
     counts i32[4, N], acc f32[4, N], keys i32[N, 2] -> (leftover, true,
     false) i32[4, N] and the new keys i32[N, 2].  ``design`` is a
-    ``(lanes, cap)`` of ``DESIGNS``; by default ``lanes_for(support, N)``."""
+    ``(lanes, cap)`` of ``SORT_DESIGNS``; by default
+    ``lanes_for(support, N)``."""
     global LAUNCHES
     dev = counts.device
     if dev.type != "cuda":

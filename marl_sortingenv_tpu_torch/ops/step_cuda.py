@@ -5,10 +5,10 @@ The kernel (``csrc/step_mono.cu``, CUDA C++ for sm_90a) computes, bit for
 bit, what the eager step of ``core/fastb.py`` computes, for every variant
 ('rule', 'external', 'sort', 'press'), masked flag and autoreset flag.  It
 returns the pre-tanh sorting-reward argument; the wrapper applies the tanh
-as the eager step does.  It comes in the designs of
-``sort_cuda.DESIGNS`` (a group of ``lanes`` lanes per env, supports up to
-``cap``); ``lanes_for(support, n)`` picks one from the table that the
-card's timings chose (``PERF.md``).
+as the eager step does.  It comes in the designs of ``STEP_DESIGNS``,
+its own list (a group of ``lanes`` lanes per env, supports up to ``cap``):
+exactly those of the table that the card's timings chose (``PERF.md``),
+from which ``lanes_for(support, n)`` picks one.
 
 ``step_mono`` launches the kernel for a state on CUDA and runs the plain
 version ``step_mono_plain`` for a state on the CPU.  ``LAUNCHES`` counts
@@ -26,7 +26,7 @@ import torch
 from ..config.config import SimConfig
 from ..core import fastb as FB
 from ..utils import profiling
-from .sort_cuda import DESIGN_SET
+from ._build import DesignSet
 
 LAUNCHES = 0
 
@@ -49,13 +49,17 @@ STATE_OUT = ("input_counts", "belt_counts", "sort_counts", "acc_belt",
 EXTRA_OUT = ("obs", "raw_sort", "press_reward", "purity", "action", "term")
 
 
-# lanes_for's table (see sort_cuda.DesignSet.pick), from the design sweep of
+# the designs csrc/step_mono.cu builds (STEP_DESIGNS there)
+STEP_DESIGNS = ((1, 16), (8, 16), (16, 16), (8, 32), (16, 32), (8, 64),
+                (16, 64), (16, 128))
+DESIGN_SET = DesignSet(STEP_DESIGNS, FB._HG_SUPPORT)
+
+# lanes_for's table (see _build.DesignSet.pick), from the design sweep of
 # chip_smoke.py on an H100 (PERF.md): the fastest design at 4096, 8192,
 # 16384, 32768 and 65536 envs, switching halfway between measured widths.
 # Wide groups win while the batch fits in one wave of the card; past that
 # their registers times lanes cost more waves than the shorter chain saves.
-# Supports 33-64 take the rows measured at support 40, 65-104 those at 88;
-# the generic (1, 104) is the fastest at no width, so no row names it.
+# Supports 33-64 take the rows measured at support 40, 65-104 those at 88.
 LANES_TABLE = ((16, 12288, (1, 16)), (16, 6144, (8, 16)), (16, 0, (16, 16)),
                (32, 6144, (8, 32)), (32, 0, (16, 32)),
                (64, 6144, (8, 64)), (64, 0, (16, 64)), (104, 0, (16, 128)))
@@ -185,7 +189,7 @@ def step_mono_kernel(cfg: SimConfig, st: FB.BState, action, *, variant: str,
                      masked: bool = True, autoreset: bool = False,
                      design=None):
     """One step of every env of ``st`` (on CUDA) through the kernel.
-    ``design`` is a ``(lanes, cap)`` of ``sort_cuda.DESIGNS``; by default
+    ``design`` is a ``(lanes, cap)`` of ``STEP_DESIGNS``; by default
     ``lanes_for(support, N)``."""
     global LAUNCHES
     FB._require_events(cfg)

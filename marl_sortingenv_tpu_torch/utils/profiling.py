@@ -139,12 +139,13 @@ def span(name: str, **attrs):
 
 def spanned(name: str, **attrs):
     """Decorator: every call of the function inside ``span(name,
-    **attrs)``."""
+    **attrs)``; the function carries the two as ``span``."""
     def wrap(fn):
         @functools.wraps(fn)
         def inner(*args, **kwargs):
             with span(name, **attrs):
                 return fn(*args, **kwargs)
+        inner.span = (name, attrs)
         return inner
     return wrap
 

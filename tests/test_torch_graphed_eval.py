@@ -1,5 +1,6 @@
 """The evaluation's graphed steps (``core/fastb.py``: ``graphed_step``,
-``GraphedStep``; ``eval/harness.py::policy_steps``) and the cache of device
+``GraphedStep``, through ``ops/graphs.py``; ``eval/harness.py::
+policy_steps``) and the cache of device
 constants (``marl_sortingenv_tpu_torch.const``) that makes the eager bodies
 capturable.
 
@@ -33,6 +34,7 @@ from marl_sortingenv_tpu_torch.core import fastb as FB
 from marl_sortingenv_tpu_torch.core import threefry as TF
 from marl_sortingenv_tpu_torch.eval import harness
 from marl_sortingenv_tpu_torch.models import mlp
+from marl_sortingenv_tpu_torch.ops import graphs
 from marl_sortingenv_tpu_torch.utils import profiling as P
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -142,7 +144,7 @@ def test_cpu_policy_steps_never_graph():
     ``fastb.eager`` span per step, none marked ``graph``, and no capture or
     replay."""
     cfg, agents = _cfg("plant_noise05"), _agents("plant_noise05", "cpu")
-    before = FB.GRAPH_CAPTURES, FB.GRAPH_REPLAYS
+    before = graphs.CAPTURES, graphs.REPLAYS
     with torch.profiler.profile():
         for policy in GRAPHED:
             for _ in harness.policy_steps(cfg, policy, "fastb", 6, 3,
@@ -151,7 +153,7 @@ def test_cpu_policy_steps_never_graph():
     eager = [r for r in P.spans() if r.name == "fastb.eager"]
     assert len(eager) == 3 * len(GRAPHED)
     assert all("graph" not in r.attrs for r in eager)
-    assert (FB.GRAPH_CAPTURES, FB.GRAPH_REPLAYS) == before
+    assert (graphs.CAPTURES, graphs.REPLAYS) == before
 
 
 # -- on the card --------------------------------------------------------------
@@ -220,13 +222,13 @@ def test_cuda_second_call_only_replays(cuda, policy):
     for _ in harness.policy_steps(cfg, policy, "fastb", 256, 3, *agents,
                                   True, 1, cuda):
         pass
-    captures, replays = FB.GRAPH_CAPTURES, FB.GRAPH_REPLAYS
+    captures, replays = graphs.CAPTURES, graphs.REPLAYS
     sort0, step0 = sort_cuda.LAUNCHES, step_cuda.LAUNCHES
     for _ in harness.policy_steps(cfg, policy, "fastb", 256, 17, *agents,
                                   True, 2, cuda):
         pass
-    assert FB.GRAPH_CAPTURES == captures
-    assert FB.GRAPH_REPLAYS == replays + 17
+    assert graphs.CAPTURES == captures
+    assert graphs.REPLAYS == replays + 17
     assert sort_cuda.LAUNCHES == sort0 + 17
     assert step_cuda.LAUNCHES == step0
 
@@ -265,16 +267,16 @@ def test_cuda_patched_step_is_captured_anew(cuda, monkeypatch):
         reward = out.reward.clone()
         reward[..., 0] += 1.0
         return st, out._replace(reward=reward)
-    captures = FB.GRAPH_CAPTURES
+    captures = graphs.CAPTURES
     with monkeypatch.context() as m:
         m.setattr(FB, "step_mono_model", altered)
         faulty = totals()
-    assert FB.GRAPH_CAPTURES == captures + 1
+    assert graphs.CAPTURES == captures + 1
     # one more per step, each sum of a reward and 1 rounded in f32
     assert abs(faulty[0] - sound[0] - 20.0) < 1e-3
     assert np.array_equal(faulty[1:], sound[1:])
     assert np.array_equal(totals(), sound)
-    assert FB.GRAPH_CAPTURES == captures + 1
+    assert graphs.CAPTURES == captures + 1
 
 
 @pytest.mark.cuda

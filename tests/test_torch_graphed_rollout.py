@@ -1,17 +1,19 @@
 """The learner's graphed rollout (``learn/ppo.py``: ``graphed_rollout``,
-``GraphedRollout``) and the device-key draws it reads its keys through
+``GraphedRollout``, through ``ops/graphs.py``) and the device-key draws it
+reads its keys through
 (``core/threefry.py``: ``split_chain``, ``random_bits_at``,
 ``categorical_at``).
 
 On the CPU: ``collect_rollout`` never graphs there, on ``fastb`` or on the
 parity engine; the device-key draws equal the host-key draws bit for bit,
 and ``split_chain`` the learner's chain of ``split_key`` calls;
-and ``GraphedRollout`` itself, with a stand-in graph whose replay runs the
-captured step again, gives every output of four rollouts bit for bit as
-the eager loop does.  On the card (marker ``cuda``): graphed and eager
-rollouts are bitwise equal over four rollouts of 64 steps (mono masked and
-unmasked, sort, press with the frozen sort agent), a second rollout only
-replays, TF32 keys a graph of its own, the train state stays a value,
+and ``GraphedRollout`` itself, with a stand-in for ``graphs.capture``
+whose replay runs the captured step again, gives every output of four
+rollouts bit for bit as the eager loop does.  On the card (marker
+``cuda``): graphed and eager rollouts are bitwise equal over four rollouts
+of 64 steps (mono masked and unmasked, sort, press with the frozen sort
+agent), a second rollout only replays, TF32 keys a graph of its own, the
+train state stays a value,
 kernel 1 counts one launch a step, a traced rollout records one
 ``rollout.graph`` span a step, and a rollout on a world-1 mesh never
 graphs.  This file imports no JAX; on the card:
@@ -33,6 +35,7 @@ from marl_sortingenv_tpu_torch.config.config import load_config
 from marl_sortingenv_tpu_torch.core import threefry as TF
 from marl_sortingenv_tpu_torch.learn import ppo
 from marl_sortingenv_tpu_torch.models import mlp
+from marl_sortingenv_tpu_torch.ops import graphs
 from marl_sortingenv_tpu_torch.utils import profiling as P
 
 # one thread: these tensors are tiny, and the suite's workers share the CPU
@@ -95,7 +98,7 @@ def _assert_rollouts_equal(got, want):
 
 
 def _counts():
-    return ppo.ROLLOUT_CAPTURES, ppo.ROLLOUT_REPLAYS
+    return graphs.CAPTURES, graphs.REPLAYS
 
 
 # -- on the CPU ---------------------------------------------------------------
@@ -154,18 +157,15 @@ def test_split_chain_equals_repeated_splits(seed):
     assert subs == want
 
 
-class _Unreplayed(ppo.GraphedRollout):
-    """A graphed rollout without a card: the capture runs the step once (as
-    the real warm-up does) and each replay runs it again on the same static
+def _rerun(device, run):
+    """``graphs.capture`` without a card: the step runs once (as the real
+    warm-up does), and each replay runs it again on the same static
     buffers, as a replay of the real graph would."""
-
-    def _capture(self, run):
-        run()
-        return SimpleNamespace(replay=run), [0, 0, 0]
+    return SimpleNamespace(replay=run), run(), [0, 0, 0]
 
 
 @pytest.mark.parametrize("name,masked", CASES)
-def test_graphed_rollout_equals_the_eager_loop(name, masked):
+def test_graphed_rollout_equals_the_eager_loop(name, masked, monkeypatch):
     """Four rollouts of 8 steps with an update between them (new parameter
     storages), across the end of the 20-step episodes: the stand-in graph
     gives every output bit for bit as the eager loop, captures once,
@@ -173,8 +173,9 @@ def test_graphed_rollout_equals_the_eager_loop(name, masked):
     step; the train state it was given is left as it was."""
     cfg = load_config(max_steps=20)
     cfg, pcfg, spec, step_fn, ts = _setup(name, masked, 16, 8, "cpu", cfg)
-    g = _Unreplayed(spec, ts, pcfg.n_steps, spec.batched_masks(cfg),
-                    masked, getattr(step_fn, "_agents", ()))
+    monkeypatch.setattr(graphs, "capture", _rerun)
+    g = ppo.GraphedRollout(spec, ts, pcfg.n_steps, spec.batched_masks(cfg),
+                           masked)
     before, ends = _counts(), 0
     for i in range(4):
         want = ppo.collect_rollout(cfg, pcfg, spec, ts, step_fn, masked)

@@ -23,9 +23,10 @@ On the CPU:
 
 On the card (marker ``cuda``, skipped without one): each kernel against its
 plain version, bitwise, at 1, 127, 4096, 4097 and 65536 envs, in every
-design that covers the support -- kernel 2 (``sort_cuda.DESIGNS``) at
-supports 16, 24, 32, 40 and 88, kernel 3 (``mvhg_cuda.REDISTRIBUTE_DESIGNS``)
-at those and at 128 -- and the frozen-sort press step through kernel 2
+design that covers the support -- kernel 2 (``sort_cuda.SORT_DESIGNS``)
+at supports 16, 24, 32, 40 and 88, kernel 3
+(``mvhg_cuda.REDISTRIBUTE_DESIGNS``) at those and at 128 -- and the
+frozen-sort press step through kernel 2
 against its plain path.  JAX is imported only inside the CPU tests, so the
 card's tests run where JAX is absent:
     python -m pytest tests/test_torch_sort_kernel.py -m cuda --noconftest -o addopts=""
@@ -277,7 +278,7 @@ def test_sort_kernel_checks_its_arguments():
         sort_cuda.sort_material_kernel(z4, torch.zeros((4, 8)),
                                        torch.zeros((8, 2), dtype=torch.int32),
                                        16, design=(16, 16))
-    assert sort_cuda.lanes_for(16, 4096) in sort_cuda.DESIGNS
+    assert sort_cuda.lanes_for(16, 4096) in sort_cuda.SORT_DESIGNS
     with pytest.raises(ValueError, match="covers supports up to 32"):
         sort_cuda.DESIGN_SET.check_design((32, 32), 40)
     with pytest.raises(ValueError, match="support"):

@@ -8,13 +8,15 @@ the fused autoreset at max_steps=3.
 
 On the card (marker ``cuda``, skipped without one): the CUDA kernel against
 ``step_mono_plain`` on the same CUDA tensors, bitwise, in every design that
-covers the config's support (``sort_cuda.DESIGNS``), at supports 16, 24,
-32, 40 and 88 and at 1, 127, 4096, 4097 and 65536 envs.  Every variant,
-out-of-range actions, the batch sizes, press completion and the deep event
-log run in the designs of caps 16 and 32 and the generic ``(1, 104)`` at
-support 16, and in the groups of caps 64 and 128 at supports 40 and 88.
-On the CPU also: the design table ``lanes_for`` and the wrapper's argument
-checks.  This module imports
+covers the config's support (``step_cuda.STEP_DESIGNS``), at supports 16,
+24, 32, 40 and 88 and at 1, 127, 4096, 4097 and 65536 envs.  Every
+variant, out-of-range actions, the batch sizes, press completion and the
+deep event log run in the designs of caps 16 and 32 at support 16, and in
+the groups of caps 64 and 128 at supports 40 and 88.
+On the CPU also: the design tables ``lanes_for`` of kernels 1 and 2 (each
+the same design at every support and width as when both kernels built one
+shared list of 13 designs) and the wrapper's argument checks.  This module
+imports
 JAX only inside the CPU tests, so the card's tests run where JAX is absent:
     python -m pytest tests/test_torch_step_kernel.py -m cuda --noconftest -o addopts=""
 """
@@ -38,16 +40,16 @@ SUPPORT_CFGS = {24: {"noise_sorting": 0.2},
                      "baseline_accuracy": (0.2, 0.2, 0.2, 0.2)}}
 
 
-designs_for = sort_cuda.DESIGN_SET.designs_for
+designs_for = step_cuda.DESIGN_SET.designs_for
 
 
 def design_id(d):
     return f"L{d[0]}c{d[1]}"
 
 
-# the designs held at support 16: those of caps 16 and 32 and the generic
-# (1, 104); the groups of caps 64 and 128 are held at supports 40 and 88
-DESIGNS_16 = [d for d in designs_for(16) if d[1] <= 32 or d[0] == 1]
+# the designs held at support 16: those of caps 16 and 32; the groups of
+# caps 64 and 128 are held at supports 40 and 88
+DESIGNS_16 = [d for d in designs_for(16) if d[1] <= 32]
 DESIGN_CASES = ([pytest.param(16, d, id=design_id(d)) for d in DESIGNS_16]
                 + [pytest.param(s, d, id=f"s{s}-{design_id(d)}")
                    for s in (40, 88) for d in designs_for(s) if d[0] > 1])
@@ -171,49 +173,85 @@ def test_kernel_refuses_a_cpu_state():
         step_cuda.step_mono_kernel(cfg, st, None, variant="rule")
 
 
+KERNELS = {"step": step_cuda, "sort": sort_cuda}
+
+
 @pytest.mark.parametrize("table", ["step", "sort"])
 def test_lanes_for_covers_every_support(table):
-    """Every support the engine allows (1 .. 104) gets a built design that
-    covers it, at any batch size; 105 raises."""
-    lanes_for = (step_cuda if table == "step" else sort_cuda).lanes_for
+    """Every support the engine allows (1 .. 104) gets a design of the
+    kernel's own list that covers it, at any batch size; the list is
+    exactly the designs the table names; 105 raises."""
+    mod = KERNELS[table]
     for support in range(1, 105):
         for n in (1, 127, 4096, 4097, 65536, 1 << 20):
-            lanes, cap = lanes_for(support, n)
-            assert (lanes, cap) in sort_cuda.DESIGNS
+            lanes, cap = mod.lanes_for(support, n)
+            assert (lanes, cap) in mod.DESIGN_SET.designs
             assert cap >= support and cap % lanes == 0
             assert lanes * (cap // lanes) >= support
-            assert sort_cuda.DESIGN_SET.covers((lanes, cap), support)
+            assert mod.DESIGN_SET.covers((lanes, cap), support)
+    assert sorted(mod.DESIGN_SET.designs) == sorted(
+        {d for _, _, d in mod.LANES_TABLE})
     with pytest.raises(ValueError, match="support"):
-        lanes_for(105, 4096)
+        mod.lanes_for(105, 4096)
     with pytest.raises(ValueError, match="support"):
-        lanes_for(0, 4096)
+        mod.lanes_for(0, 4096)
+
+
+# the tables as they stood when kernels 1 and 2 built one shared list of 13
+# designs (with (4, 16), (32, 32) .. and the generic one-lane (1, 104), which
+# ran at any support), and that list's rule: a one-lane design below the
+# cap 104 runs at its cap alone
+SHARED_TABLES = {
+    "step": ((16, 12288, (1, 16)), (16, 6144, (8, 16)), (16, 0, (16, 16)),
+             (32, 6144, (8, 32)), (32, 0, (16, 32)), (64, 6144, (8, 64)),
+             (64, 0, (16, 64)), (104, 0, (16, 128))),
+    "sort": ((16, 24576, (1, 16)), (16, 0, (16, 16)), (32, 12288, (16, 32)),
+             (32, 0, (32, 32)), (64, 0, (32, 64)), (104, 0, (32, 128)))}
+
+
+def _shared_pick(table, support, n):
+    for max_support, min_n, (lanes, cap) in table:
+        covers = (support == cap if lanes == 1 and cap < 104
+                  else support <= cap)
+        if support <= max_support and n >= min_n and covers:
+            return lanes, cap
+
+
+@pytest.mark.parametrize("n", [1024, 4096, 6144, 8192, 12288, 16384, 24576,
+                               65536])
+@pytest.mark.parametrize("table", ["step", "sort"])
+def test_lanes_for_picks_what_the_shared_list_picked(table, n):
+    """Each kernel's own design list leaves ``lanes_for`` as it was: the
+    same design at every support 1 .. 104."""
+    for support in range(1, 105):
+        assert KERNELS[table].lanes_for(support, n) == _shared_pick(
+            SHARED_TABLES[table], support, n), support
 
 
 def test_design_checks():
     """A design that is not built, or that does not cover the support,
     raises; so does a support outside the engine's range."""
-    D = sort_cuda.DESIGN_SET
+    D = step_cuda.DESIGN_SET
     assert D.check_design([16, 16], 16) == (16, 16)
-    assert D.check_design((1, 104), 104) == (1, 104)
-    with pytest.raises(ValueError, match="not built"):
-        D.check_design((2, 16), 16)
+    for design in ((1, 104), (2, 16), (4, 16), (32, 32), (32, 128)):
+        with pytest.raises(ValueError, match="not built"):
+            D.check_design(design, 16)
     with pytest.raises(ValueError, match="covers supports up to 16"):
         D.check_design((16, 16), 24)
     assert D.check_design((16, 16), 8) == (16, 16)
     with pytest.raises(ValueError, match="one-lane design runs at its cap"):
         D.check_design((1, 16), 8)
-    assert D.designs_for(40) == [(8, 64), (16, 64), (32, 64),
-                                 (16, 128), (32, 128), (1, 104)]
-    assert D.designs_for(88) == [(16, 128), (32, 128), (1, 104)]
+    assert D.designs_for(40) == [(8, 64), (16, 64), (16, 128)]
+    assert D.designs_for(88) == [(16, 128)]
     with pytest.raises(ValueError, match="covers supports up to 64"):
-        D.check_design((32, 64), 65)
+        D.check_design((16, 64), 65)
     assert (1, 16) not in D.designs_for(24)
     with pytest.raises(ValueError, match="support"):
-        D.check_design((1, 104), 105)
-    table = ((16, 4096, (8, 16)), (16, 0, (16, 16)), (104, 0, (1, 104)))
+        D.check_design((16, 128), 105)
+    table = ((16, 4096, (8, 16)), (16, 0, (16, 16)), (104, 0, (16, 128)))
     assert D.pick(table, 16, 4095) == (16, 16)
     assert D.pick(table, 16, 4096) == (8, 16)
-    assert D.pick(table, 17, 1 << 20) == (1, 104)
+    assert D.pick(table, 17, 1 << 20) == (16, 128)
     with pytest.raises(ValueError, match="no design"):
         D.pick(((16, 0, (16, 16)),), 24, 1)
 
@@ -331,7 +369,7 @@ def test_cuda_kernel_noise_and_press_completion(cuda, support, design):
     cfg = load_config(bale_mode="events", max_steps=24, noise_sorting=0.05,
                       press_time_1=1, press_time_2=2, balesize=16,
                       **SUPPORT_CFGS.get(support, {}))
-    assert sort_cuda.DESIGN_SET.covers(design, TB._support_for(cfg))
+    assert step_cuda.DESIGN_SET.covers(design, TB._support_for(cfg))
     st = _kernel_vs_plain(cfg, "rule", True, True, 4096, 30, cuda,
                           design=design)
     assert int(st.ev_cnt.max()) > 0
@@ -344,8 +382,8 @@ def test_cuda_kernel_noise_and_press_completion(cuda, support, design):
 def test_cuda_kernel_generic_support(cuda, support, design):
     """Configs whose sampler support is not 16 (24 at noise 0.2, 32 and 40
     at lower baseline accuracies, 88 at batches of 250 units) in every
-    design that covers them: 40 in the groups at caps 64 and 128 and the
-    one-lane generic design, 88 in those at cap 128 and the generic one."""
+    design that covers them: 40 in the groups at caps 64 and 128, 88 in
+    that at cap 128."""
     cfg = load_config(bale_mode="events", max_steps=20,
                       **SUPPORT_CFGS[support])
     assert TB._support_for(cfg) == support
