@@ -18,16 +18,19 @@ over ``n_steps`` (a fastb env step is one kernel launch on CUDA; on CUDA
 without a mesh each step of a ``fastb`` rollout, policy included, is one
 replay of a captured CUDA graph, ``GraphedRollout``), the update
 scans are Python loops over epochs and minibatches with ``torch.autograd``
-for the gradient, and ``optax``'s ``flatten(chain(clip_by_global_norm,
-adam))`` is ``ClipAdam`` over ONE flattened parameter vector.  The
-learner's key lives on the CPU as an int32[2] tensor: its splits are host
-arithmetic, and the draws it seeds run on the device of the env state.
+for the gradient (on CUDA each minibatch is one replay of a captured CUDA
+graph, ``GraphedUpdate``), and ``optax``'s
+``flatten(chain(clip_by_global_norm, adam))`` is ``ClipAdam`` over ONE
+flattened parameter vector.  The learner's key lives on the CPU as an
+int32[2] tensor: its splits are host arithmetic, and the draws it seeds
+run on the device of the env state.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from typing import NamedTuple
@@ -618,19 +621,14 @@ def unpack_mask(bits: torch.Tensor, A: int) -> torch.Tensor:
     return ((bits.to(I32)[None, :] >> shifts) & 1) > 0
 
 
-def ppo_update(pcfg: PPOConfig, ts: TrainState, trs: Transition,
-               advantages, returns):
-    """``n_epochs`` x shuffled minibatches, as SB3's training loop, on the
-    packed batch-last buffer ``[D + 5, n_blocks, block]`` (obs, the mask as
-    one bit-field row, action, logp, advantage, return) that the JAX
-    learner builds.  The new parameters live in a copy of ``ts.params``:
-    the incoming train state is left as it was."""
+def _pack(trs: Transition, advantages, returns, n_blocks: int, block: int):
+    """The packed batch-last buffer ``[D + 5, n_blocks, block]`` (obs, the
+    mask as one bit-field row, action, logp, advantage, return) that the
+    JAX learner builds."""
     T, N = trs.action.shape
     total = T * N
-    n_mb, mb_size, block, n_blocks, mb_blocks = minibatch_layout(pcfg, total)
     D, A = trs.obs.shape[1], trs.mask.shape[1]
-    dev = trs.obs.device
-    packed = torch.cat([
+    return torch.cat([
         trs.obs.transpose(0, 1).reshape(D, total),
         pack_mask(trs.mask.transpose(0, 1).reshape(A, total))[None],
         trs.action.reshape(1, total).to(F32),
@@ -639,37 +637,171 @@ def ppo_update(pcfg: PPOConfig, ts: TrainState, trs: Transition,
         returns.reshape(1, total).to(F32),
     ]).reshape(D + 5, n_blocks, block)
 
-    def unpack(g):
-        return (g[:D], unpack_mask(g[D], A), g[D + 1].to(I32), g[D + 2],
-                g[D + 3], g[D + 4])
 
-    model = copy.deepcopy(ts.params)
-    params = list(model.parameters())
-    flat = flat_parameters(model)
-    optimizer = make_optimizer(pcfg)
-    opt_state, key = ts.opt_state, ts.key
-    epoch_stats = []
+def _permutations(pcfg: PPOConfig, key, n_blocks: int, n_mb: int,
+                  mb_blocks: int, dev):
+    """(the key after the update, the minibatches' rows of blocks
+    ``[n_epochs * n_mb, mb_blocks]``, epoch after epoch): one ``split_key``
+    and one ``permutation`` an epoch, as the JAX learner draws them."""
+    perms = []
     for _ in range(pcfg.n_epochs):
         key, pk = TF.split_key(key)
-        perm = TF.permutation(pk, n_blocks, dev)[: n_mb * mb_blocks]
-        perm = perm.reshape(n_mb, mb_blocks)
-        mb_stats = []
-        for j in range(n_mb):
-            with profiling.span("update.loss"):
-                g = packed[:, perm[j]].reshape(-1, mb_size)
-                loss, stats = _loss_fn(model, pcfg, unpack(g))
-            with profiling.span("update.backward"):
-                grads = torch.autograd.grad(loss, params)
-            with profiling.span("update.optim"):
-                upd, opt_state = optimizer.update(
-                    torch.cat([x.reshape(-1) for x in grads]), opt_state)
-                with torch.no_grad():
-                    flat.add_(upd)
-            mb_stats.append(stats)
-        epoch_stats.append({k: torch.stack([s[k] for s in mb_stats]).mean()
-                            for k in mb_stats[0]})
-    stats = {k: torch.stack([s[k] for s in epoch_stats]).mean()
-             for k in epoch_stats[0]}
+        perms.append(TF.permutation(pk, n_blocks, dev)[: n_mb * mb_blocks]
+                     .reshape(n_mb, mb_blocks))
+    return key, torch.cat(perms)
+
+
+def _minibatch(pcfg: PPOConfig, model: mlp.ActorCritic, flat, opt_state,
+               packed, rows, A: int, loss_fn, span):
+    """One minibatch: the blocks ``rows`` of ``packed`` gathered and
+    unpacked, ``loss_fn``'s loss and its gradient, and the clipped Adam
+    step added to ``flat``, the buffer of ``model``'s parameters; (Adam's
+    new state, the minibatch's stats).  ``span`` records its phases."""
+    D = packed.shape[0] - 5
+    with span("update.loss"):
+        g = packed.index_select(1, rows).reshape(D + 5, -1)
+        loss, stats = loss_fn(model, pcfg, (
+            g[:D], unpack_mask(g[D], A), g[D + 1].to(I32), g[D + 2],
+            g[D + 3], g[D + 4]))
+    with span("update.backward"):
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+    with span("update.optim"):
+        upd, opt_state = make_optimizer(pcfg).update(
+            torch.cat([x.reshape(-1) for x in grads]), opt_state)
+        with torch.no_grad():
+            flat.add_(upd)
+    return opt_state, stats
+
+
+# ---------------------------------------------------------------------------
+# The graphed update: on CUDA, one minibatch of the PPO update (the gather,
+# the loss, autograd's backward, the clipped Adam step, the parameters'
+# add) is captured once into a CUDA graph (``ops/graphs.py``) and replayed
+# for every minibatch of every epoch.  Eagerly, each minibatch dispatches
+# some 200 small device operations from Python.
+# ---------------------------------------------------------------------------
+
+class GraphedUpdate:
+    """The minibatch of one update layout as a CUDA graph over static
+    buffers: the packed batch, the epochs' minibatch rows, a parameter
+    module over one flat buffer, Adam's state, the minibatch index ``j``
+    and the stats, ``[stat, epoch, minibatch]``.  ``run`` loads an update
+    into them, captures the minibatch at the first call (its warm-up is the
+    update's first minibatch), replays it for the others, and hands the
+    parameters, Adam's state and the stats out as fresh tensors: the
+    caller's train state stays a value."""
+
+    def __init__(self, pcfg: PPOConfig, ts: TrainState, packed, perms,
+                 A: int):
+        self.pcfg, self.A = pcfg, A
+        self.model = copy.deepcopy(ts.params)
+        self.flat = flat_parameters(self.model)
+        self.opt = [x.clone() for x in ts.opt_state]
+        self.packed = torch.empty_like(packed)
+        self.perms = torch.empty_like(perms)
+        self.j = torch.zeros(1, dtype=torch.int64, device=packed.device)
+        self.names, self.stats = None, None     # made by the warm-up
+        self.graph = None
+
+    def _step(self, loss_fn) -> None:
+        """Minibatch ``j`` on the static buffers, as the eager loop takes
+        it, with its rows read from device memory; its stats go to column
+        ``j``, and ``j`` moves on."""
+        rows = self.perms.index_select(0, self.j)[0]
+        opt, stats = _minibatch(self.pcfg, self.model, self.flat,
+                                AdamState(*self.opt), self.packed, rows,
+                                self.A, loss_fn,
+                                lambda name: contextlib.nullcontext())
+        if self.stats is None:
+            self.names = list(stats)
+            self.stats = torch.empty(
+                (len(stats), self.pcfg.n_epochs,
+                 self.perms.shape[0] // self.pcfg.n_epochs),
+                dtype=F32, device=self.j.device)
+        graphs.store(self.opt, opt)
+        self.stats.view(len(self.names), -1).index_copy_(
+            1, self.j, torch.stack(list(stats.values()))[:, None])
+        self.j.add_(1)
+
+    def run(self, ts: TrainState, packed, perms, loss_fn):
+        """The update of ``ts`` on ``packed`` by the rows ``perms``:
+        (the parameters, Adam's state, the stats).  ``loss_fn`` is the
+        loss, which only a capture calls."""
+        self.packed.copy_(packed)
+        self.perms.copy_(perms)
+        with torch.no_grad():
+            graphs.copy_leaves(list(self.model.parameters()),
+                               list(ts.params.parameters()))
+        graphs.copy_leaves(self.opt, ts.opt_state)
+        self.j.zero_()
+        batch = perms.shape[1] * packed.shape[2]
+        for _ in range(perms.shape[0]):
+            with profiling.span("update.graph", batch=batch):
+                if self.graph is None:
+                    self.graph = graphs.Graph(
+                        self.j.device, lambda: self._step(loss_fn))
+                else:
+                    self.graph.replay()
+        # each epoch's mean over a fresh copy of its contiguous row: the
+        # eager loop's reduction over a freshly stacked one, bit for bit
+        stats = {k: torch.stack([row.clone().mean() for row in s]).mean()
+                 for k, s in zip(self.names, self.stats)}
+        # the parameters in one flat buffer of their own, as the eager
+        # loop hands them out
+        model = copy.deepcopy(self.model)
+        flat_parameters(model)
+        return model, AdamState(*(x.clone() for x in self.opt)), stats
+
+
+def graphed_update(pcfg: PPOConfig, ts: TrainState, packed, perms, A: int,
+                   loss_fn):
+    """The graphed update for this layout (``graphs.cached``: keyed on the
+    loss function, so a patched one is captured anew, on the whole
+    ``pcfg``, whose constants the graph holds, on ``A``, and on the shapes
+    of the packed batch, the rows, the parameters and Adam's state, which
+    carry the minibatch layout and ``D``), or None where the update runs
+    eagerly (``graphs.eligible``: the update holds no env step and no
+    collective, so it graphs on CUDA on any engine, with a mesh or
+    without)."""
+    if not graphs.eligible(None, packed.device):
+        return None
+    return graphs.cached(
+        loss_fn, (pcfg, A),
+        (packed, perms, *ts.params.parameters(), *ts.opt_state),
+        lambda: GraphedUpdate(pcfg, ts, packed, perms, A))
+
+
+def ppo_update(pcfg: PPOConfig, ts: TrainState, trs: Transition,
+               advantages, returns):
+    """``n_epochs`` x shuffled minibatches, as SB3's training loop, on the
+    packed batch-last buffer ``[D + 5, n_blocks, block]`` (``_pack``).
+    Where ``graphed_update`` gives a graph (on CUDA), each minibatch is a
+    replay of it, with the same bits.  The new parameters live in a copy
+    of ``ts.params``: the incoming train state is left as it was."""
+    T, N = trs.action.shape
+    n_mb, _, block, n_blocks, mb_blocks = minibatch_layout(pcfg, T * N)
+    A = trs.mask.shape[1]
+    packed = _pack(trs, advantages, returns, n_blocks, block)
+    key, perms = _permutations(pcfg, ts.key, n_blocks, n_mb, mb_blocks,
+                               packed.device)
+    graph = graphed_update(pcfg, ts, packed, perms, A, _loss_fn)
+    if graph is not None:
+        model, opt_state, stats = graph.run(ts, packed, perms, _loss_fn)
+    else:
+        model = copy.deepcopy(ts.params)
+        flat = flat_parameters(model)
+        opt_state, epoch_stats = ts.opt_state, []
+        for rows in perms.split(n_mb):
+            mb_stats = []
+            for r in rows:
+                opt_state, s = _minibatch(pcfg, model, flat, opt_state,
+                                          packed, r, A, _loss_fn,
+                                          profiling.span)
+                mb_stats.append(s)
+            epoch_stats.append({k: torch.stack([s[k] for s in mb_stats])
+                                .mean() for k in mb_stats[0]})
+        stats = {k: torch.stack([s[k] for s in epoch_stats]).mean()
+                 for k in epoch_stats[0]}
     ts = ts._replace(params=model, opt_state=opt_state, key=key,
                      update_count=ts.update_count + 1)
     return ts, stats

@@ -1,11 +1,12 @@
 """CUDA graphs of the port's steps: capture, replay and one cache.
 
-On CUDA, on ``fastb`` and without a mesh (``eligible``), a step that
-dispatches hundreds of small device operations from Python (the
+Work that dispatches hundreds of small device operations from Python (the
 evaluation's eager steps, ``fastb.graphed_step``; the learner's rollout
-step, ``ppo.graphed_rollout``) is captured once into a CUDA graph over
-static buffers and replayed: the same kernels on the same memory, with one
-launch.  ``capture`` is the one hook the CPU tests replace.
+step, ``ppo.graphed_rollout``; a minibatch of the PPO update,
+``ppo.graphed_update``) is captured once into a CUDA graph over static
+buffers and replayed wherever ``eligible`` allows: the same kernels on the
+same memory, with one launch.  ``capture`` is the one hook the CPU tests
+replace.
 """
 
 from __future__ import annotations
@@ -18,12 +19,18 @@ CAPTURES = 0     # steps captured
 REPLAYS = 0      # steps replayed
 
 
-def eligible(engine: str, device, mesh=None) -> bool:
-    """Whether steps on ``engine`` and ``device`` replay from CUDA graphs:
-    on CUDA, on ``fastb``, without a mesh.  The parity and ``fast`` engines
-    read the device from the host; a mesh's step holds a collective."""
-    return (engine == "fastb" and torch.device(device).type == "cuda"
-            and mesh is None)
+def eligible(engine, device, mesh=None) -> bool:
+    """Whether work on ``device`` replays from a CUDA graph: on CUDA, when
+    it holds nothing that a graph cannot replay.  ``engine`` is the engine
+    of the env step the work holds, None where it holds none; ``mesh`` the
+    mesh its step runs on.  An env step graphs on ``fastb`` alone: the
+    parity and ``fast`` engines read the device from the host.  A mesh's
+    step holds a collective.  So the evaluation's and the rollout's steps
+    graph on ``fastb`` without a mesh, and a PPO update, which holds
+    neither, graphs on CUDA on any engine, with a mesh or without
+    (``eligible(None, device)``)."""
+    return (torch.device(device).type == "cuda"
+            and engine in (None, "fastb") and mesh is None)
 
 
 def _kernel_counters():
@@ -125,18 +132,19 @@ def _drop(fn_ref, key) -> None:
 
 
 def cached(fn, key: tuple, buffers, make):
-    """The graphed form of the step function ``fn``, ``make()`` at its
-    first request.  Keyed on ``fn`` itself (a patched step is captured
-    anew), on ``key`` (the caller's configuration and the step's other
-    arguments; an agent, an ``nn.Module``, by its parameters' storages),
-    on the shapes, dtypes and device of the static ``buffers``, and on
-    whether products may run in TF32.  Kept while ``fn`` and every agent in
-    ``key`` live: ``fn`` is held weakly (so the entry must not hold it; a
-    capture keeps no Python object of its step), an agent only through its
-    parameters, which the graph reads.  So a rollout's graph goes with the
-    iteration whose step function keys it, an evaluation's model graph
-    with its agents; the graph of a module's own step function and no
-    agent stays for the life of the process."""
+    """The graphed form of the function ``fn`` (a step, or the update's
+    loss), ``make()`` at its first request.  Keyed on ``fn`` itself (a
+    patched one is captured anew), on ``key`` (the caller's configuration
+    and the step's other arguments; an agent, an ``nn.Module``, by its
+    parameters' storages), on the shapes, dtypes and device of the static
+    ``buffers``, and on whether products may run in TF32.  Kept while
+    ``fn`` and every agent in ``key`` live: ``fn`` is held weakly (so the
+    entry must not hold it; a capture keeps no Python object of its step),
+    an agent only through its parameters, which the graph reads.  So a
+    rollout's graph goes with the iteration whose step function keys it,
+    an evaluation's model graph with its agents; the graph of a module's
+    own function and no agent (a step, the update's loss) stays for the
+    life of the process."""
     agents = [x for x in key if isinstance(x, torch.nn.Module)]
     full = (tuple(map(_key_part, key)),
             tuple(None if x is None else (tuple(x.shape), x.dtype)

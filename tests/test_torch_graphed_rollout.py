@@ -216,7 +216,9 @@ def test_cuda_graphed_rollout_equals_the_eager_loop(cuda, name, masked, n,
     """Four rollouts of 64 steps, each from the same train state graphed
     and eagerly, with an update between them, across the 200-step
     episodes' end: every transition leaf, the last values, the env state,
-    the obs, the key and the accumulators bit for bit."""
+    the obs, the key and the accumulators bit for bit.  The updates run
+    eagerly, so that the graphs counted are the rollout's."""
+    monkeypatch.setattr(ppo, "graphed_update", lambda *a, **kw: None)
     cfg, pcfg, spec, step_fn, ts = _setup(name, masked, n, 64, cuda)
     before, ends = _counts(), 0
     for _ in range(4):
@@ -233,11 +235,13 @@ def test_cuda_graphed_rollout_equals_the_eager_loop(cuda, name, masked, n,
 
 
 @pytest.mark.cuda
-def test_cuda_second_rollout_only_replays(cuda):
+def test_cuda_second_rollout_only_replays(cuda, monkeypatch):
     """After the first rollout every step is a replay, also after
     ``ppo_update`` has handed back parameters in new storages; products
     allowed in TF32 key a graph of their own, and the first is replayed
-    again once they are not."""
+    again once they are not.  The updates run eagerly, so that the graphs
+    counted are the rollout's."""
+    monkeypatch.setattr(ppo, "graphed_update", lambda *a, **kw: None)
     cfg, pcfg, spec, step_fn, ts = _setup("mono", True, 256, 16, cuda)
     it = ppo.make_train_iteration(cfg, pcfg, spec)
     ts, _ = it(ts)

@@ -150,10 +150,12 @@ def test_an_entry_goes_with_its_step_or_its_agents(rerun, drop):
 @pytest.mark.parametrize("engine,device,mesh,want", [
     ("fastb", "cuda", None, True), ("fastb", "cuda:1", None, True),
     ("fastb", "cpu", None, False), ("fast", "cuda", None, False),
-    ("parity", "cuda", None, False), ("fastb", "cuda", object(), False)])
+    ("parity", "cuda", None, False), ("fastb", "cuda", object(), False),
+    (None, "cuda", None, True), (None, "cuda:1", None, True),
+    (None, "cpu", None, False)])
 def test_eligibility(engine, device, mesh, want):
     """Steps replay on CUDA, on ``fastb``, without a mesh, and nowhere
-    else."""
+    else; work that holds no env step (a PPO update) replays on CUDA."""
     assert graphs.eligible(engine, device, mesh) is want
 
 

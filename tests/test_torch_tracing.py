@@ -306,6 +306,25 @@ def test_rollout_graph_share_reader():
     assert read(None) is None
 
 
+def test_update_graph_share_reader():
+    """``learner.update_graph_share.train`` reads 0 on the CPU's eager
+    update, 100 where every minibatch is an ``update.graph`` span, and None
+    where the slice recorded no minibatch."""
+    read = _reader("learner.update_graph_share.train")
+    run = _train()
+    with torch.profiler.profile():
+        run()
+    assert read(None) == 0.0
+    with torch.profiler.profile():
+        for _ in range(3):
+            with P.span("update.graph", batch=4):
+                pass
+    assert read(None) == 100.0
+    with torch.profiler.profile():
+        torch.zeros(2).sum()
+    assert read(None) is None
+
+
 def test_replayed_step_records_one_graph_span(monkeypatch):
     """A graphed step (``fastb.GraphedStep``) records one ``fastb.eager``
     span per replay, with its body and ``graph=True``, counts the replay
