@@ -1105,11 +1105,14 @@ def autoreset(cfg: SimConfig, st: BState) -> BState:
 
 
 def with_autoreset(cfg: SimConfig, step_fn):
-    """step_fn(cfg, st, action) batched; resets terminated instances."""
+    """step_fn(cfg, st, action) batched; resets terminated instances.  The
+    step's ``_reset`` is "eager": every step resets the whole batch and
+    selects leaf by leaf."""
     def stepped(st, action):
         st, out = step_fn(cfg, st, action)
         fresh = autoreset(cfg, st)
         return _select_state(out.terminated, st, fresh), out
+    stepped._reset = "eager"
     return stepped
 
 
@@ -1119,13 +1122,16 @@ def mono_autoreset_step(cfg: SimConfig, variant: str,
     kernel-covered variant ('rule' | 'external' | 'sort' | 'press').  On
     CUDA an events-mode state's terminated-env reset is fused into the step
     kernel; on the CPU, and in full-bale mode, it is ``with_autoreset`` over
-    the eager step, with the same bits."""
+    the eager step, with the same bits.  The step's ``_reset`` says which
+    the card runs: "kernel" in events mode, else "eager"."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}")
 
     def stepped(st, action):
         return _dispatch(cfg, st, None if variant == "rule" else action,
                          variant, use_action_masking, autoreset=True)
+    stepped._reset = ("kernel" if resolved_bale_mode(cfg) == "events"
+                      else "eager")
     return stepped
 
 

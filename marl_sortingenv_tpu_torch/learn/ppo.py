@@ -404,12 +404,15 @@ class GraphedRollout:
     index and the transitions.  ``run`` loads a train state into them,
     captures the step at the first call (its warm-up is the rollout's first
     step), replays it for the others, and hands everything out as fresh
-    tensors: the caller's states stay values."""
+    tensors: the caller's states stay values.  ``attrs`` are the
+    ``rollout.graph`` spans' attributes: the variant, the batch, ``agents``
+    (the frozen agents the step carries, its ``_agents``) and, from the
+    capture on, ``reset``."""
 
     def __init__(self, spec: VariantSpec, ts: TrainState, T: int,
-                 masks_of, use_action_masking: bool):
+                 masks_of, use_action_masking: bool, agents: int = 0):
         n, dev = ts.obs.shape[0], ts.obs.device
-        self.variant, self.n = spec.name, n
+        self.attrs = dict(variant=spec.name, batch=n, agents=agents)
         self.masks_of, self.masking = masks_of, use_action_masking
         self.params = copy.deepcopy(ts.params).requires_grad_(False)
         self.carry = [None if x is None else x.clone()
@@ -442,7 +445,8 @@ class GraphedRollout:
     def run(self, batched, ts: TrainState):
         """The rollout of ``ts``: (the train state after it, the
         transitions).  ``batched`` is the autoreset step, which only a
-        capture calls."""
+        capture calls; its ``_reset`` tag ("kernel" or "eager") is the
+        spans' ``reset``."""
         T, dev = self.keys.shape[0], self.t.device
         key, words = TF.split_chain(ts.key, T)
         graphs.copy_leaves(list(self.params.parameters()),
@@ -453,9 +457,10 @@ class GraphedRollout:
             host = host.pin_memory()
         self.keys.copy_(host, non_blocking=True)
         self.t.zero_()
+        if self.graph is None:
+            self.attrs["reset"] = getattr(batched, "_reset", None)
         for _ in range(T):
-            with profiling.span("rollout.graph", variant=self.variant,
-                                batch=self.n):
+            with profiling.span("rollout.graph", **self.attrs):
                 if self.graph is None:
                     self.graph = graphs.Graph(
                         dev, lambda: self._step(batched))
@@ -477,13 +482,14 @@ def graphed_rollout(cfg: SimConfig, pcfg: PPOConfig, spec: VariantSpec,
     eagerly (``graphs.eligible``)."""
     if not graphs.eligible(spec.engine, ts.obs.device, mesh):
         return None
+    agents = getattr(step_fn, "_agents", ())
     return graphs.cached(
         step_fn, (type(spec).batched_autoreset_step, cfg, spec,
-                  use_action_masking, pcfg.n_steps,
-                  *getattr(step_fn, "_agents", ())),
+                  use_action_masking, pcfg.n_steps, *agents),
         (*_carried(ts), *ts.params.parameters()),
         lambda: GraphedRollout(spec, ts, pcfg.n_steps,
-                               spec.batched_masks(cfg), use_action_masking))
+                               spec.batched_masks(cfg), use_action_masking,
+                               len(agents)))
 
 
 @torch.no_grad()

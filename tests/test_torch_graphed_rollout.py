@@ -9,7 +9,9 @@ parity engine; the device-key draws equal the host-key draws bit for bit,
 and ``split_chain`` the learner's chain of ``split_key`` calls;
 and ``GraphedRollout`` itself, with a stand-in for ``graphs.capture``
 whose replay runs the captured step again, gives every output of four
-rollouts bit for bit as the eager loop does.  On the card (marker
+rollouts bit for bit as the eager loop does, and ``collect_rollout``
+replays the press step with the frozen sort agent bit for bit through
+it, its spans naming the agent and the eager reset.  On the card (marker
 ``cuda``): graphed and eager rollouts are bitwise equal over four rollouts
 of 64 steps (mono masked and unmasked, sort, press with the frozen sort
 agent), a second rollout only replays, TF32 keys a graph of its own, the
@@ -45,6 +47,10 @@ ROOT = Path(__file__).resolve().parents[1]
 SORT_NPZ = ROOT / "artifacts" / "models_tuned" / "PPO_Sorting_Tuned_100000.npz"
 # (variant, masking): the rollouts a train state of each variant takes
 CASES = [("mono", True), ("mono", False), ("sort", True), ("press", True)]
+# (frozen agents, autoreset) the rollout step of each variant carries: mono
+# takes kernel 1's fused reset, the others ``with_autoreset``'s
+STEP_TAGS = {"mono": (0, "kernel"), "sort": (0, "eager"),
+             "press": (1, "eager")}
 
 
 def _cfg():
@@ -175,7 +181,7 @@ def test_graphed_rollout_equals_the_eager_loop(name, masked, monkeypatch):
     cfg, pcfg, spec, step_fn, ts = _setup(name, masked, 16, 8, "cpu", cfg)
     monkeypatch.setattr(graphs, "capture", _rerun)
     g = ppo.GraphedRollout(spec, ts, pcfg.n_steps, spec.batched_masks(cfg),
-                           masked)
+                           masked, len(getattr(step_fn, "_agents", ())))
     before, ends = _counts(), 0
     for i in range(4):
         want = ppo.collect_rollout(cfg, pcfg, spec, ts, step_fn, masked)
@@ -185,7 +191,9 @@ def test_graphed_rollout_equals_the_eager_loop(name, masked, monkeypatch):
             ts_g, trs_g = g.run(batched, ts)
         recs = [r for r in P.spans() if r.parent is None]
         assert [r.name for r in recs] == ["rollout.graph"] * 8
-        assert recs[0].attrs == {"variant": name, "batch": 16}
+        agents, reset = STEP_TAGS[name]
+        assert recs[0].attrs == {"variant": name, "batch": 16,
+                                 "agents": agents, "reset": reset}
         with torch.no_grad():
             lv_g = ppo._forward(ts.params, ts_g.obs)[1]
         _assert_rollouts_equal((ts_g, trs_g, lv_g), want)
@@ -196,6 +204,35 @@ def test_graphed_rollout_equals_the_eager_loop(name, masked, monkeypatch):
         ts, _ = ppo.ppo_update(pcfg, want[0], want[1], adv, ret)
     assert ends > 0
     assert _counts() == (before[0] + 1, before[1] + 31)
+
+
+def test_press_collect_rollout_replays_bitwise(monkeypatch):
+    """The press rollout with the frozen sort agent through
+    ``collect_rollout``'s graphed path (``graphs.eligible`` made true, the
+    stand-in capture): three rollouts across the end of the 20-step
+    episodes, the first a capture and the others replays, each bit for bit
+    the eager loop's, every step one ``rollout.graph`` span with
+    ``agents`` 1 and ``reset`` "eager"."""
+    cfg = load_config(max_steps=20)
+    cfg, pcfg, spec, step_fn, ts = _setup("press", True, 16, 8, "cpu", cfg)
+    before, ends = _counts(), 0
+    for _ in range(3):
+        with monkeypatch.context() as m:
+            m.setattr(graphs, "eligible", lambda *a, **kw: True)
+            m.setattr(graphs, "capture", _rerun)
+            with torch.profiler.profile():
+                got = ppo.collect_rollout(cfg, pcfg, spec, ts, step_fn)
+            recs = [r for r in P.spans() if r.parent is None]
+        assert [r.name for r in recs] == ["rollout.graph"] * 8
+        assert {tuple(sorted(r.attrs.items())) for r in recs} == {
+            (("agents", 1), ("batch", 16), ("reset", "eager"),
+             ("variant", "press"))}
+        want = ppo.collect_rollout(cfg, pcfg, spec, ts, step_fn)
+        _assert_rollouts_equal(got, want)
+        ends += int(got[1].done.sum())
+        ts = got[0]
+    assert ends > 0
+    assert _counts() == (before[0] + 1, before[1] + 23)
 
 
 # -- on the card --------------------------------------------------------------
@@ -308,7 +345,8 @@ def test_cuda_traced_rollout_records_graph_spans(cuda):
         ppo.collect_rollout(cfg, pcfg, spec, ts, step_fn)
     recs = P.spans()
     assert [r.name for r in recs] == ["rollout.graph"] * 16
-    assert all(r.attrs == {"variant": "mono", "batch": 256} for r in recs)
+    assert all(r.attrs == {"variant": "mono", "batch": 256, "agents": 0,
+                           "reset": "kernel"} for r in recs)
 
 
 @pytest.mark.cuda

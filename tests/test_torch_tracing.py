@@ -16,6 +16,7 @@ file imports no JAX; on the card:
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import math
@@ -323,6 +324,89 @@ def test_update_graph_share_reader():
     with torch.profiler.profile():
         torch.zeros(2).sum()
     assert read(None) is None
+
+
+def _graphed_rollouts(name, monkeypatch, k=2):
+    """``k`` rollouts of ``name`` (press against the configuration's sort
+    agent) at the tiny train size through ``collect_rollout``'s graphed
+    path on the CPU: ``graphs.eligible`` made true and a capture whose
+    replay reruns the step; the last one profiled."""
+    from types import SimpleNamespace
+
+    from marl_sortingenv_tpu_torch.config.config import load_config
+    from marl_sortingenv_tpu_torch.learn import ppo
+    from marl_sortingenv_tpu_torch.models import mlp
+    from marl_sortingenv_tpu_torch.ops import graphs
+
+    monkeypatch.setattr(graphs, "eligible", lambda *a, **kw: True)
+    monkeypatch.setattr(graphs, "capture", lambda device, run: (
+        SimpleNamespace(replay=run), run(), [0, 0, 0]))
+    p, conf = _tiny("train_mono"), _sim("plant_paper")
+    cfg = load_config(**conf["sim"])
+    pcfg = ppo.PPOConfig(n_steps=p["n_steps"], batch_size=p["batch_size"])
+    spec = ppo.spec_for(name, engine="fastb")
+    sort = (mlp.load_npz(str(ROOT / conf["agents"]["sort"]), device="cpu")
+            .requires_grad_(False) if name == "press" else None)
+    step_fn = spec.step_fn(sort)
+    ts = ppo.init_train_state(cfg, pcfg, spec, p["n_envs"], seed=3,
+                              device="cpu")
+    for i in range(k):
+        with (torch.profiler.profile() if i == k - 1
+              else contextlib.nullcontext()):
+            ts = ppo.collect_rollout(cfg, pcfg, spec, ts, step_fn)[0]
+    return p["n_steps"], p["n_envs"]
+
+
+@pytest.mark.parametrize("name,agents,reset,share", [
+    ("press", 1, "eager", 100.0), ("mono", 0, "kernel", 0.0)])
+def test_rollout_graph_span_names_its_step(name, agents, reset, share,
+                                           monkeypatch):
+    """A graphed rollout's ``rollout.graph`` spans carry, fixed at the
+    capture, the frozen agents its step holds and where its autoreset runs:
+    press with the sort agent 1 and "eager" (``with_autoreset``), mono 0 and
+    "kernel" (kernel 1's fused reset), on replays as on the capture; the
+    ``train_press`` readers of them read 100 and 100 for press, 0 and 0 for
+    mono."""
+    for k in (1, 2):
+        steps, n = _graphed_rollouts(name, monkeypatch, k)
+        # the stand-in's replays run the step again, its spans inside
+        recs = [r for r in P.spans() if r.parent is None]
+        assert [r.name for r in recs] == ["rollout.graph"] * steps
+        assert all(r.attrs == {"variant": name, "batch": n,
+                               "agents": agents, "reset": reset}
+                   for r in recs)
+    assert _reader("learner.rollout_graph_share.train_press")(None) == share
+    assert _reader("learner.eager_reset_share.train_press")(None) == share
+
+
+def test_train_press_span_readers():
+    """The two span readers of ``train_press``: the graph share counts the
+    eager loop's ``rollout.policy`` steps in its base (0 on the CPU's eager
+    rollout, where the reset share has no graph span and reads None); both
+    read None on graph spans without the new attributes (a program that
+    does not record them) and where the slice recorded no rollout step."""
+    graph = _reader("learner.rollout_graph_share.train_press")
+    reset = _reader("learner.eager_reset_share.train_press")
+    run = _train()
+    with torch.profiler.profile():
+        run()
+    assert graph(None) == 0.0 and reset(None) is None
+    with torch.profiler.profile():
+        for agents in (1, 1, 0):
+            with P.span("rollout.graph", variant="press", batch=4,
+                        agents=agents, reset="eager"):
+                pass
+        with P.span("rollout.policy"):
+            pass
+    assert graph(None) == 50.0 and reset(None) == 100.0
+    with torch.profiler.profile():
+        for _ in range(3):
+            with P.span("rollout.graph", variant="press", batch=4):
+                pass
+    assert graph(None) is None and reset(None) is None
+    with torch.profiler.profile():
+        torch.zeros(2).sum()
+    assert graph(None) is None and reset(None) is None
 
 
 def test_replayed_step_records_one_graph_span(monkeypatch):
